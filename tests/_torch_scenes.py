@@ -1,0 +1,56 @@
+"""Scenes shared by the PyTorch port's parity tests (tests/test_torch_*.py).
+
+Both packages render the same procedural room: the JAX package builds
+it, and the port receives its fields as numpy arrays through
+`FlatScene.from_numpy`.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+
+from tinypathtracer_tpu.models.envlight import gradient_sky
+from tinypathtracer_tpu.models.procedural import sphere_grid_scene
+from tinypathtracer_tpu_torch import FlatScene
+
+# one point, one spot and one directional light
+LIGHTS = dict(
+    light_kind=np.array([0, 2, 1], np.int32),
+    light_color=np.array([[1.0, 0.9, 0.8], [0.5, 0.6, 1.0], [1.0, 1.0, 1.0]],
+                         np.float32),
+    light_intensity=np.array([4.0, 6.0, 0.7], np.float32),
+    light_pos=np.array([[0.0, 3.5, 0.0], [2.0, 2.0, -2.0], [0.0, 0.0, 0.0]],
+                       np.float32),
+    light_dir=np.array([[0.0, -1.0, 0.0], [-0.5, -0.7071, 0.5],
+                        [0.3015, -0.9045, 0.3015]], np.float32),
+    light_cos_outer=np.array([0.0, 0.8, 0.0], np.float32),
+    light_inv_cone=np.array([0.0, 5.0, 0.0], np.float32),
+)
+
+
+def jax_scene(grid=1, n_lat=6, n_lon=12, lights=False):
+    """The JAX package's sphere-grid room (132 faces at the defaults),
+    with a 16x32 sky, optionally with the three delta lights."""
+    flat = sphere_grid_scene(grid=grid, n_lat=n_lat, n_lon=n_lon,
+                             env_radiance=gradient_sky(16, 32))
+    if lights:
+        flat = dataclasses.replace(
+            flat, **{k: jnp.asarray(v) for k, v in LIGHTS.items()})
+    return flat
+
+
+def jax_planes(woop) -> np.ndarray:
+    """A JAX WoopTris' component planes ([4, Fp] x 3) in the port's
+    face-major [Fp, 12] layout."""
+    return np.concatenate([np.asarray(woop.wx).T, np.asarray(woop.wy).T,
+                           np.asarray(woop.wz).T], axis=1)
+
+
+def to_numpy(flat) -> dict:
+    return {f.name: np.asarray(getattr(flat, f.name))
+            for f in dataclasses.fields(flat)}
+
+
+def port_scene(flat, device="cpu") -> FlatScene:
+    return FlatScene.from_numpy(to_numpy(flat), device)

@@ -1,0 +1,114 @@
+"""Kernel B's boundary: the port's megakernel against the JAX package's
+Pallas megakernel (interpret mode), on identical rays, uniforms, tables
+and lights.
+
+The [16, N] rows (radiance, throughput at miss, final direction) must
+agree within atol 1e-5, the JAX package's own mega-vs-modular bound
+(tests/test_mega.py). They are not bit-equal: the hit arithmetic is
+(ops/dense.py), but XLA:CPU fuses the shading math's multiply-adds and
+computes rsqrt, sin and cos with its own approximations, where the port
+rounds every operation on its own (ulp-level differences per bounce).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tinypathtracer_tpu.ops import dense as jdense
+from tinypathtracer_tpu.ops import mega as jmega
+from tinypathtracer_tpu.render.integrator import TraceData as JaxTraceData
+from tinypathtracer_tpu_torch.ops import mega
+from tinypathtracer_tpu_torch.ops.dense import precompute_woop
+from tinypathtracer_tpu_torch.ops.lights import lights_block
+from tinypathtracer_tpu_torch.render.integrator import TraceData
+
+from _torch_scenes import jax_scene, port_scene
+
+torch.set_num_threads(2)
+
+N = 256          # a multiple of the JAX kernel's 128-ray block
+
+
+def _inputs(depth, seed):
+    """rays8 from the camera and from inside the room, and u8d uniforms
+    (6 rows per bounce, 2 zero rows), from numpy."""
+    rng = np.random.default_rng(seed)
+    o = np.where(rng.random((N, 1)) < 0.5, [[0.0, 0.0, -4.6]],
+                 rng.uniform(-4.0, 4.0, (N, 3))).astype(np.float32)
+    d = rng.standard_normal((N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.zeros((1, N), np.float32)
+    rays8 = np.concatenate([o.T, z, d.T, z], axis=0)
+    u8d = rng.random((8 * depth, N)).astype(np.float32)
+    u8d.reshape(depth, 8, N)[:, 6:] = 0.0
+    return rays8, u8d
+
+
+@pytest.mark.parametrize("lights", [False, True])
+@pytest.mark.parametrize("depth", [3, 4])
+def test_mega_rows_vs_jax_interpret(lights, depth):
+    flat = jax_scene(lights=lights)
+    jdata = jax.jit(JaxTraceData.from_scene)(flat)
+    jwoop = jax.jit(jdense.precompute_woop)(jdata.tri_verts)
+    planesT, shadeT, boxes = jmega._scene_blocks(jdata, jwoop)
+    jlights = jmega._lights_block(jdata)
+    n_lights = int(jdata.light_kind.shape[0])
+    rays8, u8d = _inputs(depth, seed=depth + 10 * lights)
+    want = np.asarray(jmega._mega_pallas(
+        jnp.asarray(rays8), jnp.asarray(u8d), planesT, shadeT, boxes,
+        jlights, depth=depth, n_lights=n_lights, interpret=True, w=128))
+
+    # the port's own tables equal JAX's (shading rows within 2 ulp, see
+    # tests/test_torch_scene.py); the kernel gets JAX's, like for like
+    data = TraceData.from_scene(port_scene(flat))
+    p_planes, p_shade = mega._scene_blocks(data, precompute_woop(
+        data.tri_verts))
+    assert np.array_equal(np.asarray(planesT), p_planes.numpy())
+    assert np.allclose(np.asarray(shadeT), p_shade.numpy(), rtol=3e-7,
+                       atol=0)
+    assert np.array_equal(np.asarray(jlights), lights_block(data).numpy())
+
+    t = lambda a: torch.from_numpy(np.array(a))          # noqa: E731
+    got = mega.mega_trace(t(rays8), t(u8d), t(planesT), t(shadeT),
+                          t(jlights), depth=depth, n_lights=n_lights).numpy()
+    assert got.shape == want.shape == (16, N)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert want[0:3].mean() > 0.01                       # paths gathered light
+
+
+def test_constant_quotients_match_xla():
+    """`x / pi` and `x / (2 pi)` in the JAX shading math are `x * fl32(1 /
+    c)` once XLA has compiled them; the port (twin and kernel B alike)
+    multiplies by the constants INV_PI and INV_2PI, bit-equal to XLA."""
+    from tinypathtracer_tpu.ops import shading_c as jshading
+    from tinypathtracer_tpu_torch.ops import shading_c
+
+    x = np.random.default_rng(4).random(4096, dtype=np.float32) * 4.0
+    for c, inv in ((jshading.PI, shading_c.INV_PI),
+                   (2.0 * jshading.PI, shading_c.INV_2PI)):
+        want = np.asarray(jax.jit(lambda a: a / c)(x))   # noqa: B023
+        assert np.array_equal((torch.from_numpy(x) * inv).numpy(), want)
+        # the IEEE quotient differs on a share of lanes: the test can tell
+        assert not np.array_equal(x / np.float32(c), want)
+
+
+def test_mega_available_scope():
+    data = TraceData.from_scene(port_scene(jax_scene()))
+    woop = precompute_woop(data.tri_verts)
+
+    class Cfg:
+        mode = "reference"
+
+    assert mega.mega_available(data, Cfg, woop)
+    big = precompute_woop(torch.zeros((8193, 3, 3)))
+    assert not mega.mega_available(data, Cfg, big)
+
+
+def test_bad_operands_raise():
+    rays8, u8d = _inputs(2, seed=0)
+    with pytest.raises(ValueError, match="bad megakernel operands"):
+        mega.mega_trace(torch.from_numpy(rays8), torch.from_numpy(u8d),
+                        torch.zeros((128, 12)), torch.zeros((32, 128)),
+                        torch.zeros((1, 16)), depth=3, n_lights=0)

@@ -1,0 +1,212 @@
+"""Reference-mode path-tracing megakernel (port of
+`tinypathtracer_tpu/ops/mega.py`, forward only).
+
+One kernel launch traces a whole chunk of paths through every bounce:
+the camera closest hit, then per bounce the shading fetch of the hit
+slot, (t, u, v) recomputed from the slot's planes, the interpolated
+normal, emission and termination, the BSDF sample, the extra cosine
+emitter query and up to 6 delta-light any-hits. All queries of a bounce
+leave from the same hit point, so one pass over the triangles serves
+them all. Per-bounce uniforms come precomputed (`u8d`, the exact draws
+of the modular loop) and the env lookup of lanes that missed runs after
+the kernel (the epilogue in `trace_paths_mega`), so the image equals the
+modular path's (render/integrator.py) by key.
+
+The CUDA kernel (`csrc/mega.cu`, kernel B) replaces the TPU kernel
+`_make_mega_kernel`. `_mega_torch` is its plain PyTorch twin: same
+inputs and outputs (the JAX package's [K, N] layouts), same arithmetic.
+It shades each bounce with the modular path's own helpers
+(`render.integrator.scatter` and `end_bounce`) and differs from it only
+in how it queries hits. `mega_trace` dispatches on the tensors' device.
+
+Scope (`mega_available`): reference mode, <= 8192 padded faces, <= 6
+delta lights. The stored-hit residuals (`save_hits`) and the custom
+backward are a later port item.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tinypathtracer_tpu_torch.ops.dense import (WoopTris, hit_terms,
+                                                origin_terms, scan_queries)
+from tinypathtracer_tpu_torch.ops.lights import lights_block
+from tinypathtracer_tpu_torch.ops.sampling import fold_all, lane_uniform
+from tinypathtracer_tpu_torch.render.integrator import (Paths, TraceData,
+                                                        end_bounce, env_miss,
+                                                        scatter)
+from tinypathtracer_tpu_torch.utils import cuda_build
+
+MEGA_MAX_FACES = 8192
+MAX_LIGHTS = 6
+# shadeT row map (rows of the [32, Fp] fused table): rows 12-26 are the
+# 15 shade_packT rows (corner normals, base color, emission, eta,
+# metallic)
+_ROW_NRM = 12
+_ROW_EM = 24
+_ROW_METAL = 26
+_SHADE_ROWS = 32
+
+
+def _scene_blocks(data: TraceData, woop: WoopTris):
+    """Slot-indexed planes [Fp, 12] and fused shading table [32, Fp]:
+    rows 0-11 planes, 12-20 corner normals, 21-23 base color, 24
+    emission, 25 eta, 26 metallic, 27-31 zero. Padding slots are zero."""
+    fp = woop.n_padded
+    valid = torch.arange(fp, device=woop.planes.device) < woop.n_faces
+    shade_m = data.shade_packT[:15, woop.perm] * valid[None, :].float()
+    shadeT = torch.cat([woop.planes.T, shade_m,
+                        shade_m.new_zeros((_SHADE_ROWS - 27, fp))], dim=0)
+    return woop.planes, shadeT.contiguous()
+
+
+def mega_available(data: TraceData, cfg, woop: WoopTris) -> bool:
+    """Static scope check: reference mode, few enough delta lights, and
+    a scene small enough for the megakernel (<= 8192 padded faces)."""
+    return (cfg.mode == "reference" and data.n_lights <= MAX_LIGHTS
+            and woop.n_padded <= MEGA_MAX_FACES)
+
+
+def _check_mega_args(rays8, u8d, planesT, shadeT, lights, depth, n_lights):
+    n, fp = rays8.shape[1], planesT.shape[0]
+    if (rays8.shape[0] != 8 or tuple(u8d.shape) != (8 * depth, n)
+            or planesT.shape[1] != 12 or tuple(shadeT.shape) != (32, fp)
+            or lights.shape[1] != 16 or lights.shape[0] < max(n_lights, 1)
+            or not 0 <= n_lights <= MAX_LIGHTS):
+        raise ValueError(
+            f"bad megakernel operands: rays8 {tuple(rays8.shape)}, u8d "
+            f"{tuple(u8d.shape)}, planesT {tuple(planesT.shape)}, shadeT "
+            f"{tuple(shadeT.shape)}, lights {tuple(lights.shape)}, depth "
+            f"{depth}, n_lights {n_lights}")
+
+
+def _mega_torch(rays8, u8d, planesT, shadeT, lights, depth: int,
+                n_lights: int):
+    """Plain twin of kernel B. rays8 [8, N] (origin xyz, 0, dir xyz, 0);
+    u8d [8*depth, N] (6 uniforms + 2 zero rows per bounce); planesT
+    [Fp, 12]; shadeT [32, Fp]; lights [max(L, 1), 16]. Returns [16, N]:
+    rows 0-2 radiance, 3-5 throughput at miss, 6-8 final direction."""
+    n = rays8.shape[1]
+    shade = shadeT.T                                     # [Fp, 32]
+    st = Paths.start((rays8[0], rays8[1], rays8[2]),
+                     (rays8[4], rays8[5], rays8[6]))
+    ((_, slot),), _ = scan_queries(planesT, st.o, [st.d], 1)
+    zeros = rays8.new_zeros((n,))
+    thr_miss = (zeros, zeros, zeros)
+    for dep in range(depth):
+        if not bool(st.alive.any()):
+            break        # dead lanes never change state
+        miss = slot < 0
+        count_env = st.alive & miss
+        thr_miss = tuple(torch.where(count_env, tc, m)
+                         for tc, m in zip(st.thr, thr_miss))
+        blk = shade[torch.clamp_min(slot, 0).long()].T   # [32, N]
+        # (t, u, v) recomputed from the winner's planes with the scan's
+        # arithmetic: bit-equal to the values the scan compared
+        w = list(blk[:12])
+        t, bu, bv = hit_terms(origin_terms(*st.o, w), *st.d, w)
+        st, sc = scatter(st, miss, t, bu, bv, blk[_ROW_NRM:_ROW_METAL + 1],
+                         u8d[8 * dep:8 * dep + 8], lights, n_lights)
+
+        # One pass over the triangles for every query of the bounce, on
+        # the live lanes only (the others' results are never read). The
+        # next-direction query is skipped on the last bounce.
+        idx = sc.live.nonzero()[:, 0]
+        closest = [sc.d2] + ([sc.nd] if dep + 1 < depth else [])
+        qdirs = [tuple(c[idx] for c in q)
+                 for q in closest + [wi for wi, _ in sc.lights]]
+        res, occ = scan_queries(planesT, tuple(c[idx] for c in sc.h), qdirs,
+                                len(closest))
+        slot2 = torch.full_like(slot, -1).index_put_((idx,), res[0][1])
+        slot_n = torch.full_like(slot, -1)
+        if dep + 1 < depth:
+            slot_n.index_put_((idx,), res[1][1])
+        unocc = [~torch.zeros_like(sc.live).index_put_((idx,), o)
+                 for o in occ]
+        st = end_bounce(st, sc, slot2.long(), shade[:, _ROW_EM], unocc)
+        slot = slot_n
+    return torch.stack([*st.rad, *thr_miss, *st.d] + [zeros] * 7, dim=0)
+
+
+@functools.cache
+def _lib():
+    lib = cuda_build.load_library("mega")
+    lib.tpt_mega_trace.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p] * 2
+    lib.tpt_mega_trace.restype = ctypes.c_int
+    return lib
+
+
+def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
+               n_lights: int):
+    shade_rows = shadeT.T.contiguous()                   # [Fp, 32] face-major
+    cuda_build.check_operands(rays8, u8d, planesT, shade_rows, lights)
+    n, fp = rays8.shape[1], planesT.shape[0]
+    out = torch.empty((16, n), dtype=torch.float32, device=rays8.device)
+    if n == 0:
+        return out
+    status = _lib().tpt_mega_trace(
+        rays8.data_ptr(), u8d.data_ptr(), planesT.data_ptr(),
+        shade_rows.data_ptr(), lights.data_ptr(), n, fp, depth, n_lights,
+        out.data_ptr(), cuda_build.stream_ptr(rays8.device))
+    cuda_build.check_launch(status, "mega_trace")
+    mega_trace.launches += 1
+    return out
+
+
+def mega_trace(rays8, u8d, planesT, shadeT, lights, depth: int,
+               n_lights: int):
+    """Trace paths to completion: kernel B on CUDA tensors, its plain
+    twin on CPU tensors. See `_mega_torch` for the layouts."""
+    _check_mega_args(rays8, u8d, planesT, shadeT, lights, depth, n_lights)
+    if rays8.device.type == "cuda":
+        return _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth,
+                          n_lights)
+    if rays8.device.type == "cpu":
+        return _mega_torch(rays8, u8d, planesT, shadeT, lights, depth,
+                           n_lights)
+    raise ValueError(f"mega_trace has no kernel for device {rays8.device}")
+
+
+mega_trace.launches = 0
+
+
+def bounce_uniforms(lane_keys, depth: int):
+    """u8d [8*depth, N]: per bounce the modular loop's exact draws
+    lane_uniform(fold_all(keys, bounce), 6), padded to 8 rows."""
+    n = lane_keys.shape[0]
+    bands = []
+    for dep in range(depth):
+        bands.append(lane_uniform(fold_all(lane_keys, dep), 6).T)
+        bands.append(lane_keys.new_zeros((2, n), dtype=torch.float32))
+    return torch.cat(bands, dim=0)
+
+
+def mega_operands(data: TraceData, cfg, woop: WoopTris, origins, dirs,
+                  lane_keys):
+    """The positional operands of `mega_trace` for a ray batch: (rays8,
+    u8d, planesT, shadeT, lights); depth and n_lights come from cfg and
+    data."""
+    n = origins.shape[0]
+    planesT, shadeT = _scene_blocks(data, woop)
+    z = origins.new_zeros((1, n))
+    rays8 = torch.cat([origins.T, z, dirs.T, z], dim=0).contiguous()
+    return (rays8, bounce_uniforms(lane_keys, cfg.max_depth), planesT,
+            shadeT, lights_block(data))
+
+
+def trace_paths_mega(data: TraceData, cfg, woop: WoopTris, origins, dirs,
+                     lane_keys):
+    """Megakernel trace of a ray batch; returns radiance [N, 3], equal by
+    key to `render.integrator.trace_paths` on the dense intersector."""
+    out = mega_trace(*mega_operands(data, cfg, woop, origins, dirs,
+                                    lane_keys),
+                     depth=cfg.max_depth, n_lights=data.n_lights)
+    # env epilogue: a lane misses at most once (miss terminates), so the
+    # kernel returns the throughput at the miss and the final direction
+    er, eg, eb = env_miss(data, cfg, out[6], out[7], out[8])
+    return torch.stack([out[0] + out[3] * er, out[1] + out[4] * eg,
+                        out[2] + out[5] * eb], dim=1)

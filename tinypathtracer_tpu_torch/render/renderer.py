@@ -1,0 +1,122 @@
+"""Renderer: scene -> image (port of `tinypathtracer_tpu/render/renderer.py`).
+
+Per frame: world geometry and shading tables (`prepare_state`), then
+the (pixel, sample) lanes flattened into one ray axis and traced in
+chunks of up to `cfg.rays_per_dispatch` rays. Each lane derives its key
+from (frame key, pixel id, sample id), so images are identical under any
+chunking. A chunk runs the megakernel (ops/mega.py) when the scene
+qualifies and `cfg.megakernel` is set, else the modular bounce loop on
+the dense closest-hit kernel (render/integrator.py).
+
+Kernels run where the scene's tensors live: on CUDA the hand-written
+kernels, on the CPU their plain PyTorch twins. Forward only: rendering
+runs under `torch.inference_mode()`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import torch
+
+from tinypathtracer_tpu_torch.config import RenderConfig
+from tinypathtracer_tpu_torch.models.scene import FlatScene
+from tinypathtracer_tpu_torch.ops.dense import (WoopTris, closest_hit_dense,
+                                                precompute_woop)
+from tinypathtracer_tpu_torch.ops.mega import mega_available, trace_paths_mega
+from tinypathtracer_tpu_torch.ops.sampling import (fold_all, fold_in,
+                                                   fold_lanes, lane_uniform)
+from tinypathtracer_tpu_torch.render import film, raygen
+from tinypathtracer_tpu_torch.render.integrator import TraceData, trace_paths
+
+# Key-derivation tag for the camera-jitter draw; bounces use their depth
+# (0..max_depth-1) as the tag, so any large constant is collision-free.
+_CAM_TAG = 0x00CA_0CA1
+
+
+@dataclasses.dataclass
+class PipelineState:
+    """What the per-pixel render needs: the scene, its world-space trace
+    data and the Woop triangles of the dense intersector."""
+
+    scene: FlatScene
+    data: TraceData
+    woop: WoopTris
+
+
+def prepare_state(scene: FlatScene, cfg: RenderConfig) -> PipelineState:
+    data = TraceData.from_scene(scene)
+    return PipelineState(scene=scene, data=data,
+                         woop=precompute_woop(data.tri_verts))
+
+
+def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key):
+    """Camera rays and lane keys of pixel ids pix [P] (row-major
+    y * width + x): one lane per (pixel, sample), pixel-major. The lane
+    key is fold_in(fold_in(key, pixel), sample), so every draw is
+    independent of batch layout. Returns (origins, dirs [P*spp, 3],
+    keys [P*spp, 2])."""
+    lane_pix = pix.repeat_interleave(cfg.spp)
+    lane_s = torch.arange(cfg.spp, dtype=torch.int64,
+                          device=pix.device).repeat(pix.shape[0])
+    keys = fold_in(fold_lanes(key, lane_pix), lane_s)
+    u_cam = lane_uniform(fold_all(keys, _CAM_TAG), 2)
+    o, d = raygen.camera_rays_u(
+        u_cam, scene.cam_to_world, scene.cam_yfov, scene.cam_aspect,
+        lane_pix % cfg.width, lane_pix // cfg.width, cfg.width, cfg.height)
+    return o, d, keys
+
+
+def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key):
+    """Radiance SUM over cfg.spp samples for pixel ids pix [P] (row-major
+    y * width + x). Returns [P, 3] float32."""
+    spp = cfg.spp
+    data = state.data
+    use_mega = cfg.megakernel and mega_available(data, cfg, state.woop)
+    hit = functools.partial(closest_hit_dense, woop=state.woop)
+    n = pix.shape[0]
+    # all spp of a pixel stay in one chunk (the sample sum is in-chunk)
+    px_chunk = max(1, min(n, cfg.rays_per_dispatch // spp))
+    out = []
+    for start in range(0, n, px_chunk):
+        chunk_pix = pix[start:start + px_chunk]
+        m = chunk_pix.shape[0]
+        o, d, keys = lane_rays(state.scene, cfg, chunk_pix, key)
+        if use_mega:
+            rad = trace_paths_mega(data, cfg, state.woop, o, d, keys)
+        else:
+            rad = trace_paths(data, cfg, hit, o, d, keys)
+        out.append(rad.reshape(m, spp, 3).sum(dim=1))
+    return torch.cat(out, dim=0)
+
+
+def render_frame(scene: FlatScene, cfg: RenderConfig, key):
+    """Render one frame; returns the radiance SUM image [H, W, 3]."""
+    state = prepare_state(scene, cfg)
+    pix = torch.arange(cfg.n_pixels, dtype=torch.int64, device=scene.device)
+    return render_pixel_ids(state, cfg, pix, key).reshape(
+        cfg.height, cfg.width, 3)
+
+
+class Renderer:
+    """Render pipeline for a fixed config on one device.
+
+    `render` moves the scene and key to the device; a device that is
+    not available raises here rather than rendering elsewhere.
+    """
+
+    def __init__(self, cfg: RenderConfig, device="cpu"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Renderer(device={device!r}): CUDA is not available")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {device!r}")
+
+    def render(self, scene: FlatScene, key):
+        """Returns the mean-radiance image [H, W, 3], top-down rows."""
+        with torch.inference_mode():
+            rad_sum = render_frame(scene.to(self.device), self.cfg,
+                                   key.to(self.device))
+            return film.to_image(rad_sum, self.cfg.spp)

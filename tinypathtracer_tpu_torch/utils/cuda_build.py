@@ -1,0 +1,85 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source `csrc/<name>.cu` (plus the shared headers in
+`csrc/`) is compiled by `nvcc` into a shared library with a plain C
+interface, at first use, into `_build/` inside the package, under a
+file name keyed by a hash of the sources and flags; it is loaded with
+`ctypes`. Nothing here runs at import time: this module is imported on
+machines that have no CUDA toolkit.
+
+Flags: `sm_90a` (Hopper), IEEE division and square root (no
+`--use_fast_math`: IEEE `/` and NaN rejection are part of the hit
+contract), and `--fmad=false`, so the compiler fuses no multiply-add by
+itself; the kernels fuse exactly where they say so (`fmaf`), which keeps
+them bit-equal to their plain PyTorch twins.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile (once per source hash) and load `csrc/<name>.cu`."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
+    lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))
+
+
+def check_launch(status: int, kernel: str) -> None:
+    """Raise if a C entry point reported a CUDA error (cudaGetLastError)."""
+    if status != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {status}")
+
+
+def check_operands(*tensors: torch.Tensor) -> None:
+    """Validate kernel operands: float32, contiguous, 16-byte aligned (the
+    kernels load planes as float4), on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if (t.device != dev or dev.type != "cuda" or not t.is_contiguous()
+                or t.dtype != torch.float32 or t.data_ptr() % 16):
+            raise ValueError(
+                "kernel operands must be contiguous, 16-byte aligned float32 "
+                f"tensors on one CUDA device (got {t.dtype} on {t.device}, "
+                f"contiguous={t.is_contiguous()}, address {t.data_ptr():#x})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
