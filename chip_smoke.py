@@ -23,13 +23,31 @@ non-zero):
   5. both kernels against their plain twins at the main path's shapes,
      one 2**20-lane chunk of the frame: kernel A on its camera rays
      (exact), kernel B on its rays and uniforms in the room and in the
-     big room (atol 1e-5); then the kernels' times beside the twins'.
+     big room (atol 1e-5); then the kernels' times beside the twins';
+  6. kernel B's save_hits instance against its twin: the same 2**20-path
+     room chunk and 64x64 @ 4 spp d8 on the 3-light room; the hit rows
+     must equal the twin's exactly and the [16, N] rows the forward
+     instance's; times of both instances and their registers;
+  7. the train step, the second main path, through the public entry
+     point make_train_step(cfg, lr=1e-2, device="cuda") on the room at
+     512x512 @16 spp d8 with a zero target, launch counters zeroed: one
+     warm-up step, best of 3 step times, fwd+bwd camera rays/s, loss, peak
+     memory, a forward / backward / Adam split (CUDA events); the step
+     must launch the save_hits instance once per chunk and no other
+     kernel (no intersection in the backward), and give finite gradients;
+  8. megakernel-path against modular-path gradients on the card, 64x64
+     @4 spp d8, room and 3-light room (rtol 1e-5; CUDA's index backward
+     sums with atomics in no fixed order).
+Each kernel's bound is the least time the card could take for the work
+of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
+and its bytes (inputs read once, outputs written once) over 3.35 TB/s.
 The last lines are the kernels JSON, the card's name and power limit,
 and the result JSON.
 """
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -39,6 +57,21 @@ import torch
 ROOM = (2, 8, 16)          # sphere_grid_scene(grid, n_lat, n_lon): 1,804 faces
 BIG_ROOM = (2, 16, 32)     # 7,692 faces, 8,192 padded
 MEGA_ATOL = 1e-5
+GRAD_RTOL = 1e-5
+LR = 1e-2
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor
+# cores, and HBM3
+FP32_PEAK = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# fp32 operations of the hit test (csrc/hit.cuh), a fused multiply-add
+# counted as 2 and the IEEE divide as 1 (the least it can cost; the
+# compiler's divide is a sequence of ~10 instructions), comparisons not
+# counted: o' = W o + c is 3 x (1 mul + 2 FMA) + 3 adds = 18 per
+# (origin, triangle); a direction against it is d' = W d (15), t (1),
+# u and v (2 FMA = 4), u + v (1) = 21 per (direction, triangle)
+OPS_ORIGIN = 18
+OPS_DIRECTION = 21
 
 
 def log(*args):
@@ -52,18 +85,71 @@ def card_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps):
-    """(mean device time of fn() over reps launches after one warm-up,
-    the warm-up's result)."""
-    out = fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
+def cuda_ms(fn, reps, warm=True):
+    """(median device time of one fn() call over reps calls, each between
+    its own pair of CUDA events, so that a gap in the host's enqueueing
+    inflates one sample and not the result; the first result). With
+    warm, one untimed call comes first."""
+    out = fn() if warm else None
+    pairs = []
     for _ in range(reps):
-        fn()
-    stop.record()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = fn()
+        ev[1].record()
+        pairs.append(ev)
+        out = res if out is None else out
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps, out
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2], out
+
+
+def bound(ops, nbytes):
+    """(least time in ms, "operations" or "bytes"): the larger of the
+    two rooflines."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dense_work(n, fp):
+    """(operations, bytes) of kernel A on n rays x fp slots: rays [N, 8]
+    read, (t, slot, u, v) written, the planes read once."""
+    return n * fp * (OPS_ORIGIN + OPS_DIRECTION), n * (32 + 16) + fp * 48
+
+
+def mega_work(hits, shadeT, depth, n_lights, save_hits):
+    """(operations, bytes) of kernel B on the paths whose residuals are
+    `hits` (from the save_hits instance on the same inputs: both
+    instances trace the same queries). Counted from this run's data: the
+    camera query of every lane, then per bounce on each live lane (hit,
+    not emissive) one origin transform per slot, the next-direction
+    query (not on the last bounce), the extra emitter query on diffuse
+    lanes, and each delta light: a full sweep where unoccluded, at least
+    one test where occluded (the sweep stops at its first occluder).
+    Bytes: rays8, u8d, planes and the shading rows read, [16, N] written
+    (and the [8 * depth, N] residuals with save_hits)."""
+    fp, n = shadeT.shape[1], hits.shape[1]
+    rows = hits.view(depth, 8, n)
+    slot = rows[:, 0].long()
+    s = slot.clamp_min(0)
+    live = (slot >= 0) & (shadeT[24][s] <= 0.0)
+    diffuse = ~((shadeT[25][s] >= 1.0) | (shadeT[26][s] > 0.0))
+    occ = rows[:, 5].long()
+    origins, directions = n * fp, n * fp              # the camera query
+    for dep in range(depth):
+        lv = live[dep]
+        origins += int(lv.sum()) * fp
+        directions += (int(lv.sum()) * (dep + 1 < depth)
+                       + int((lv & diffuse[dep]).sum())) * fp
+        for li in range(n_lights):
+            occluded = ((occ[dep] >> li) & 1) == 1
+            directions += (int((lv & ~occluded).sum()) * fp
+                           + int((lv & occluded).sum()))
+    nbytes = n * (32 + 32 * depth + 64) + fp * (48 + 128)
+    if save_hits:
+        nbytes += n * 32 * depth
+    return origins * OPS_ORIGIN + directions * OPS_DIRECTION, nbytes
 
 
 def check_mega(got, want, what):
@@ -76,6 +162,161 @@ def check_mega(got, want, what):
     if not (diff <= MEGA_ATOL and torch.isfinite(got).all()):
         raise AssertionError(f"kernel B != twin on {what} paths: {diff}")
     return diff
+
+
+def check_hits(out, hits, fwd_out, twin_out, twin_hits, what):
+    """The save_hits instance against the forward instance (its [16, N]
+    rows, exactly) and the twin (the [16, N] rows within MEGA_ATOL, the
+    hit rows exactly). Returns the max abs difference from the twin."""
+    if not torch.equal(out, fwd_out):
+        raise AssertionError(f"save_hits changed kernel B's rows on {what}")
+    lanes = int((hits != twin_hits).any(dim=0).sum())
+    diff = float((hits - twin_hits).abs().max())
+    log(f"kernel B save_hits vs twin, {what} paths d8: hit rows "
+        f"{'exact' if lanes == 0 else f'differ on {lanes} lanes'}; [16, N] "
+        "rows equal to the forward instance's")
+    if lanes or not torch.isfinite(hits).all():
+        raise AssertionError(f"kernel B's hit rows != twin's on {what}")
+    return max(diff, check_mega(out, twin_out, what))
+
+
+def param_names(inv):
+    return [f.name for f in dataclasses.fields(inv.Params)]
+
+
+def train_phase(T, cfg, host_scene):
+    """Phase 7: the full-width train step on the card. Returns the
+    launches of its steps."""
+    from tinypathtracer_tpu_torch.diff import invrender as inv
+    from tinypathtracer_tpu_torch.ops import dense, mega
+
+    dev = torch.device("cuda")
+    n_rays = cfg.n_pixels * cfg.spp
+    n_chunks = -(-cfg.n_pixels // (cfg.rays_per_dispatch // cfg.spp))
+    scene = host_scene.to(dev)
+    params = inv.Params.from_scene(scene)
+    state = inv.AdamState.init(params)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    step = inv.make_train_step(cfg, LR, device="cuda")
+    dense.dense_hit.launches = 0
+    mega.mega_trace.launches = 0
+    mega.mega_trace.launches_save_hits = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    best, n_steps = float("inf"), 4
+    for i in range(n_steps):              # one warm-up step, then 3 timed
+        t0 = time.perf_counter()
+        _, new_state, loss = step(params, state, scene, target,
+                                  T.prng_key(i + 1, dev))
+        loss = float(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i:
+            best = min(best, dt)
+        log(f"train step {i} ({'warm-up' if i == 0 else 'timed'}): "
+            f"{dt * 1e3:.1f} ms, loss {loss:.6f}, Adam step "
+            f"{new_state.step}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"train step loss is not finite: {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"dense": dense.dense_hit.launches,
+                "mega": mega.mega_trace.launches,
+                "mega_save_hits": mega.mega_trace.launches_save_hits}
+    log(f"train step, {cfg.width}x{cfg.height} @{cfg.spp}spp "
+        f"d{cfg.max_depth}, {n_rays} camera paths, {n_chunks} chunks: best "
+        f"of 3 {best * 1e3:.1f} ms, {n_rays / best:,.0f} fwd+bwd camera "
+        f"rays/s; peak memory {peak / 2**30:.2f} GiB; launches in "
+        f"{n_steps} steps {launches}")
+    if launches != {"dense": 0, "mega": 0,
+                    "mega_save_hits": n_steps * n_chunks}:
+        raise AssertionError(f"the train step must launch the save_hits "
+                             f"instance once per chunk and nothing else: "
+                             f"{launches}")
+
+    # the step's three parts, timed with CUDA events: forward (mse_loss),
+    # backward (the stored-hit replay), Adam
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = inv.Params(*(x.detach().requires_grad_()
+                          for x in params.leaves()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    loss = inv.mse_loss(leaves, scene, cfg, target, T.prng_key(1, dev))
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    grads = leaves.grads()
+    inv.adam_step(params, grads, state, LR)
+    ev[3].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd, adam = (ev[k].elapsed_time(ev[k + 1]) for k in range(3))
+    log(f"train step split (CUDA events): forward {fwd:.1f} ms, backward "
+        f"{bwd:.1f} ms, Adam {adam:.2f} ms; host wall {wall * 1e3:.1f} ms")
+    profile_step(step, params, state, scene, target, T.prng_key(1, dev))
+    for f, g in zip(param_names(inv), grads.leaves()):
+        log(f"  grad {f}: shape {tuple(g.shape)}, max abs "
+            f"{float(g.abs().max()) if g.numel() else 0.0:.4e}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"gradient of {f} is not finite")
+        if f in ("mtl_base_color", "mtl_emission", "env_radiance") and \
+                not bool((g != 0).any()):
+            raise AssertionError(f"gradient of {f} is zero")
+    return launches
+
+
+def profile_step(step, *args):
+    """One train step under torch.profiler: wall time, the device's busy
+    share (kernel time over wall) and the kernels with the most time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[0] for r in rows)
+    log(f"profiled train step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f} %)")
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        log(f"  {ms:9.1f} ms  {count:6d} x  {key[:90]}")
+
+
+def compare_grads(T, scene, cfg, name):
+    """Phase 8: Params gradients of the MSE loss through the megakernel
+    (stored-hit replay) against the modular path (kernel A hits, the same
+    replay) on the card, rtol GRAD_RTOL plus 1e-6 of the largest
+    gradient."""
+    from tinypathtracer_tpu_torch.diff import invrender as inv
+
+    dev = scene.device
+    params = inv.Params.from_scene(scene)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    key = T.prng_key(2, dev)
+    la, ga = inv.loss_and_grads(params, scene, cfg, target, key)
+    lb, gb = inv.loss_and_grads(
+        params, scene, dataclasses.replace(cfg, megakernel=False), target,
+        key)
+    g_all = max(float(g.abs().max()) for g in gb.leaves() if g.numel())
+    worst = {}
+    for f, a, b in zip(param_names(inv), ga.leaves(), gb.leaves()):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{name}: gradient of {f} is not finite")
+        if a.numel() and not torch.allclose(a, b, rtol=GRAD_RTOL,
+                                            atol=1e-6 * g_all):
+            raise AssertionError(f"{name}: megakernel and modular gradients "
+                                 f"of {f} disagree")
+        worst[f] = float((a - b).abs().max()) if a.numel() else 0.0
+    log(f"megakernel vs modular gradients, {name}, {cfg.width}x{cfg.height} "
+        f"@{cfg.spp}spp d{cfg.max_depth}: losses {float(la):.8f} / "
+        f"{float(lb):.8f}; max abs diff per leaf {worst} (largest gradient "
+        f"{g_all:.4e})")
+    if abs(float(la) - float(lb)) > 1e-6 * abs(float(lb)):
+        raise AssertionError(f"{name}: megakernel and modular losses differ")
 
 
 def with_lights(scene):
@@ -220,6 +461,7 @@ def main():
     log(f"launches in the main path: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    del images, img, big_img, r
 
     # ---- 5. both kernels against their twins at the main path's shapes ----
     # one 2**20-lane chunk: its camera rays into kernel A, its rays8 / u8d
@@ -229,19 +471,22 @@ def main():
     rays = torch.cat([ops[0][0:3].T, ops[0][4:7].T,
                       torch.zeros((ops[0].shape[1], 2), device=dev)],
                      dim=1).contiguous()
-    a_ms, got = cuda_ms(lambda: dense.dense_hit(rays, woop.planes), 3)
-    a_plain, want = cuda_ms(lambda: dense._dense_torch(rays, woop.planes), 1)
+    a_ms, got = cuda_ms(lambda: dense.dense_hit(rays, woop.planes), 5)
+    a_plain, want = cuda_ms(lambda: dense._dense_torch(rays, woop.planes), 1,
+                            warm=False)
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"kernel A != twin on {rays.shape[0]} camera "
                              "rays")
     err_a = max(err_a, float((got[2] - want[2]).abs().max()))
     log(f"kernel A vs twin, {rays.shape[0]} camera rays x {woop.n_padded} "
         f"slots: exact; {a_ms:.2f} ms (plain twin {a_plain:.1f} ms)")
-    b_ms, got = cuda_ms(lambda: mega.mega_trace(*ops, depth=8, n_lights=0), 2)
-    b_plain, want = cuda_ms(
-        lambda: mega._mega_torch(*ops, depth=8, n_lights=0), 1)
-    err_b = max(err_b, check_mega(got, want, f"room, {chunk * cfg.spp}"))
-    log(f"kernel B, {got.shape[1]} paths d8: {b_ms:.2f} ms "
+    b_ms, room_out = cuda_ms(
+        lambda: mega.mega_trace(*ops, depth=8, n_lights=0), 5)
+    b_plain, room_want = cuda_ms(
+        lambda: mega._mega_torch(*ops, depth=8, n_lights=0), 1, warm=False)
+    err_b = max(err_b, check_mega(room_out, room_want,
+                                  f"room, {chunk * cfg.spp}"))
+    log(f"kernel B, {room_out.shape[1]} paths d8: {b_ms:.2f} ms "
         f"(plain twin {b_plain:.1f} ms)")
     big_ops, big_state = mega_frame_operands(
         big.to(dev), cfg, key.to(dev), n_pix=chunk)
@@ -251,18 +496,70 @@ def main():
     err_b = max(err_b, check_mega(
         got, want, f"big room ({big_state.woop.n_padded} slots), "
         f"{got.shape[1]}"))
+    del big_ops, big_state, got, want
+
+    # ---- 6. kernel B's save_hits instance vs its twin ----------------------
+    for n_lights in (0, 3):
+        for save_hits in (False, True):
+            regs, spill = mega.kernel_resources(n_lights, save_hits)
+            log(f"kernel B instance lights={n_lights} save_hits={save_hits}: "
+                f"{regs} registers, {spill} B local memory per thread")
+    h_ms, (h_out, h_hits) = cuda_ms(lambda: mega.mega_trace(
+        *ops, depth=8, n_lights=0, save_hits=True), 5)
+    h_plain, (_, want_hits) = cuda_ms(lambda: mega._mega_torch(
+        *ops, depth=8, n_lights=0, save_hits=True), 1, warm=False)
+    err_h = check_hits(h_out, h_hits, room_out, room_want, want_hits,
+                       f"room, {h_hits.shape[1]}")
+    log(f"kernel B save_hits, {h_hits.shape[1]} paths d8: {h_ms:.2f} ms "
+        f"(forward instance {b_ms:.2f} ms, plain twin {h_plain:.1f} ms)")
+    for name, scene in (("room", room), ("room+3 lights", with_lights(room))):
+        s_ops, state = mega_frame_operands(scene, small, T.prng_key(1, dev))
+        n_l = state.data.n_lights
+        fwd = mega.mega_trace(*s_ops, depth=8, n_lights=n_l)
+        out, hits = mega.mega_trace(*s_ops, depth=8, n_lights=n_l,
+                                    save_hits=True)
+        want_out, want_h = mega._mega_torch(*s_ops, depth=8, n_lights=n_l,
+                                            save_hits=True)
+        err_h = max(err_h, check_hits(out, hits, fwd, want_out, want_h,
+                                      f"{name}, {hits.shape[1]}"))
+    ops_b, bytes_b = mega_work(h_hits, ops[3], 8, 0, save_hits=False)
+    ops_h, bytes_h = mega_work(h_hits, ops[3], 8, 0, save_hits=True)
+    ops_a, bytes_a = dense_work(rays.shape[0], woop.n_padded)
+    bounds = {"dense": bound(ops_a, bytes_a), "mega": bound(ops_b, bytes_b),
+              "mega_save_hits": bound(ops_h, bytes_h)}
+    log(f"work per 2**20-lane chunk: kernel A {ops_a / 1e9:.2f} GFLOP, "
+        f"{bytes_a / 1e6:.1f} MB; kernel B {ops_b / 1e9:.2f} GFLOP, "
+        f"{bytes_b / 1e6:.1f} MB (save_hits {bytes_h / 1e6:.1f} MB); "
+        f"bounds {bounds}")
+    del ops, rays, h_out, h_hits, want_hits, room_out, room_want
+
+    # ---- 7. the train step at full width -----------------------------------
+    train_launches = train_phase(T, cfg, host_room)
+
+    # ---- 8. megakernel vs modular gradients on the card --------------------
+    for name, scene in (("room", room), ("room+3 lights", with_lights(room))):
+        compare_grads(T, scene, small, name)
 
     kernels = [
         {"name": "dense_closest_hit", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/dense.cu",
          "replaces": "tinypathtracer_tpu/ops/dense.py:197",
          "launches": launches["dense"], "max_abs_err": err_a,
-         "ms": a_ms, "plain_ms": a_plain},
+         "ms": a_ms, "plain_ms": a_plain, "bound_ms": bounds["dense"][0],
+         "bound_by": bounds["dense"][1], "library_ms": None},
         {"name": "mega_trace", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",
          "launches": launches["mega"], "max_abs_err": err_b,
-         "ms": b_ms, "plain_ms": b_plain},
+         "ms": b_ms, "plain_ms": b_plain, "bound_ms": bounds["mega"][0],
+         "bound_by": bounds["mega"][1], "library_ms": None},
+        {"name": "mega_trace_save_hits", "route": "cuda",
+         "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
+         "replaces": "tinypathtracer_tpu/ops/mega.py:224",
+         "launches": train_launches["mega_save_hits"], "max_abs_err": err_h,
+         "ms": h_ms, "plain_ms": h_plain,
+         "bound_ms": bounds["mega_save_hits"][0],
+         "bound_by": bounds["mega_save_hits"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

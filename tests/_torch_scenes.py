@@ -2,17 +2,24 @@
 
 Both packages render the same procedural room: the JAX package builds
 it, and the port receives its fields as numpy arrays through
-`FlatScene.from_numpy`.
+`FlatScene.from_numpy`. `train_setup` does the same for the training
+state: JAX `Params` and an optax Adam state, and their port twins.
 """
 
 import dataclasses
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import optax
 
+from tinypathtracer_tpu.diff.invrender import Params as JaxParams
 from tinypathtracer_tpu.models.envlight import gradient_sky
 from tinypathtracer_tpu.models.procedural import sphere_grid_scene
 from tinypathtracer_tpu_torch import FlatScene
+from tinypathtracer_tpu_torch.diff import Params, adam_state_from_optax
+
+LR = 1e-2
 
 # one point, one spot and one directional light
 LIGHTS = dict(
@@ -54,3 +61,20 @@ def to_numpy(flat) -> dict:
 
 def port_scene(flat, device="cpu") -> FlatScene:
     return FlatScene.from_numpy(to_numpy(flat), device)
+
+
+def train_setup(flat, seed=0, steps=2, device="cpu"):
+    """(JAX Params of flat, a mid-training optax.adam(LR) state, the port's
+    Params, the port's AdamState). The state has taken `steps` updates
+    with gradients drawn from numpy (seed); the params stay the scene's."""
+    jparams = JaxParams.from_scene(flat)
+    opt = optax.adam(LR)
+    state = opt.init(jparams)
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        grads = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(
+                rng.standard_normal(x.shape).astype(np.float32)), jparams)
+        _, state = opt.update(grads, state, jparams)
+    params = Params.from_numpy(to_numpy(jparams), device)
+    return jparams, state, params, adam_state_from_optax(state, params)

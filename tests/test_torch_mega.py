@@ -78,6 +78,79 @@ def test_mega_rows_vs_jax_interpret(lights, depth):
     assert want[0:3].mean() > 0.01                       # paths gathered light
 
 
+def _jax_unpack(hits, perm, depth):
+    """JAX `trace_paths_mega` primal's unpacking of the residual rows."""
+    hr = hits.reshape(depth, 8, -1)
+    slot = hr[:, 0].astype(jnp.int32)
+    slot2 = hr[:, 4].astype(jnp.int32)
+    fid = jnp.where(slot >= 0, perm[jnp.maximum(slot, 0)], -1)
+    fid2 = jnp.where(slot2 >= 0, perm[jnp.maximum(slot2, 0)], -1)
+    return [np.asarray(a) for a in (fid, hr[:, 1], hr[:, 2], hr[:, 3], fid2,
+                                    hr[:, 5].astype(jnp.int32))]
+
+
+@pytest.mark.parametrize("lights", [False, True])
+@pytest.mark.parametrize("depth", [1, 3])
+def test_save_hits_rows_vs_jax_interpret(lights, depth):
+    """The twin's hit residuals against JAX `_mega_pallas(save_hits=True)`.
+
+    Where read, the rows are exactly JAX's: slot on every lane, slot2 and
+    the occlusion bits on live lanes (alive, hit, not emissive; elsewhere
+    the port defines them as -1 and 0, JAX leaves what its queries gave).
+    t, u, v are exact at the first bounce and on dead lanes; from the
+    second bounce on the rays themselves differ by ulps (XLA fuses the
+    shading that makes them, see the module docstring), so there t, u, v
+    are held to the [16, N] rows' atol 1e-5. The [16, N] rows equal the
+    save_hits=False call's."""
+    flat = jax_scene(lights=lights)
+    jdata = jax.jit(JaxTraceData.from_scene)(flat)
+    jwoop = jax.jit(jdense.precompute_woop)(jdata.tri_verts)
+    planesT, shadeT, boxes = jmega._scene_blocks(jdata, jwoop)
+    jlights = jmega._lights_block(jdata)
+    n_lights = int(jdata.light_kind.shape[0])
+    rays8, u8d = _inputs(depth, seed=depth + 10 * lights)
+    _, jhits = jmega._mega_pallas(
+        jnp.asarray(rays8), jnp.asarray(u8d), planesT, shadeT, boxes,
+        jlights, depth=depth, n_lights=n_lights, interpret=True, w=128,
+        save_hits=True)
+
+    t = lambda a: torch.from_numpy(np.array(a))          # noqa: E731
+    ops = (t(rays8), t(u8d), t(planesT), t(shadeT), t(jlights))
+    out, hits = mega.mega_trace(*ops, depth=depth, n_lights=n_lights,
+                                save_hits=True)
+    assert torch.equal(out, mega.mega_trace(*ops, depth=depth,
+                                            n_lights=n_lights))
+    got_rows = hits.numpy().reshape(depth, 8, N)
+    want_rows = np.asarray(jhits).reshape(depth, 8, N)
+    assert (got_rows[:, 6:] == 0).all()
+    emissive = np.asarray(shadeT)[24] > 0.0
+    perm = jwoop.perm
+    fid, t_, uv, fid2, occ = mega.unpack_hits(hits, t(perm).long(), depth)
+    got = [a.numpy() for a in (fid, t_, uv[..., 0], uv[..., 1], fid2, occ)]
+    want = _jax_unpack(jhits, perm, depth)
+    for dep in range(depth):
+        slot = want_rows[dep, 0]
+        hit = slot >= 0
+        live = hit & ~emissive[np.maximum(slot, 0).astype(np.int64)]
+        np.testing.assert_array_equal(got_rows[dep, 0], slot)
+        np.testing.assert_array_equal(got[0][dep], want[0][dep])    # fid
+        for row in (1, 2, 3):                                   # t, u, v
+            np.testing.assert_array_equal(got_rows[dep, row][~hit],
+                                          want_rows[dep, row][~hit])
+            np.testing.assert_allclose(got_rows[dep, row][hit],
+                                       want_rows[dep, row][hit], rtol=0,
+                                       atol=0 if dep == 0 else 1e-5)
+        for row, k in ((4, 4), (5, 5)):                   # slot2 / fid2, occ
+            np.testing.assert_array_equal(got_rows[dep, row][live],
+                                          want_rows[dep, row][live])
+            np.testing.assert_array_equal(got[k][dep][live],
+                                          want[k][dep][live])
+            assert (got_rows[dep, row][~live] == (-1 if row == 4 else 0)).all()
+        assert live.any()
+    if lights:
+        assert (got[5] > 0).any()                # some light was occluded
+
+
 def test_constant_quotients_match_xla():
     """`x / pi` and `x / (2 pi)` in the JAX shading math are `x * fl32(1 /
     c)` once XLA has compiled them; the port (twin and kernel B alike)

@@ -57,8 +57,8 @@ def test_render_matches_jax(jax_path, lights):
             flat, jax.random.PRNGKey(3)), SIZE["spp"]))
     scene = port_scene(flat)
     for megakernel in (True, False):
-        got = Renderer(RenderConfig(**SIZE, megakernel=megakernel)).render(
-            scene, prng_key(3)).numpy()
+        got = Renderer(RenderConfig(**SIZE, megakernel=megakernel),
+                       device="cpu").render(scene, prng_key(3)).numpy()
         _assert_close_images(got, want)
     assert want.mean() > 0.05
 
@@ -68,9 +68,9 @@ def test_megakernel_and_modular_paths_agree():
     scene without delta lights they give the same image bit for bit."""
     scene = port_scene(jax_scene())
     cfg = RenderConfig(width=12, height=10, spp=3, max_depth=5)
-    a = Renderer(cfg).render(scene, prng_key(11))
-    b = Renderer(dataclasses.replace(cfg, megakernel=False)).render(
-        scene, prng_key(11))
+    a = Renderer(cfg, device="cpu").render(scene, prng_key(11))
+    b = Renderer(dataclasses.replace(cfg, megakernel=False),
+                 device="cpu").render(scene, prng_key(11))
     assert torch.equal(a, b)
 
 
@@ -81,9 +81,9 @@ def test_megakernel_and_modular_paths_agree_with_lights():
     per light."""
     scene = port_scene(jax_scene(lights=True))
     cfg = RenderConfig(width=12, height=10, spp=3, max_depth=5)
-    a = Renderer(cfg).render(scene, prng_key(11))
-    b = Renderer(dataclasses.replace(cfg, megakernel=False)).render(
-        scene, prng_key(11))
+    a = Renderer(cfg, device="cpu").render(scene, prng_key(11))
+    b = Renderer(dataclasses.replace(cfg, megakernel=False),
+                 device="cpu").render(scene, prng_key(11))
     assert float(a.mean()) > 0.05
     assert torch.equal(a, b)
 
@@ -93,29 +93,40 @@ def test_image_independent_of_chunking(megakernel):
     scene = port_scene(jax_scene(lights=True))
     cfg = RenderConfig(width=9, height=7, spp=3, max_depth=3,
                        megakernel=megakernel)
-    a = Renderer(cfg).render(scene, prng_key(5))
-    b = Renderer(dataclasses.replace(cfg, rays_per_dispatch=20)).render(
-        scene, prng_key(5))
+    a = Renderer(cfg, device="cpu").render(scene, prng_key(5))
+    b = Renderer(dataclasses.replace(cfg, rays_per_dispatch=20),
+                 device="cpu").render(scene, prng_key(5))
     assert torch.equal(a, b)
 
 
 def test_cpu_render_launches_no_kernel():
     """On CPU tensors the wrappers take the plain twins: no launch."""
     before = (dense_hit.launches, mega_trace.launches)
-    Renderer(RenderConfig(width=4, height=4, spp=1, max_depth=2)).render(
-        port_scene(jax_scene()), prng_key(0))
+    Renderer(RenderConfig(width=4, height=4, spp=1, max_depth=2),
+             device="cpu").render(port_scene(jax_scene()), prng_key(0))
     assert (dense_hit.launches, mega_trace.launches) == before
 
 
 def test_port_imports_no_jax():
-    """The port imports and renders with jax made unimportable."""
+    """The port imports, renders and takes a train step with jax made
+    unimportable."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import tinypathtracer_tpu_torch as T\n"
         "img = T.Renderer(T.RenderConfig(width=4, height=4, spp=1, "
-        "max_depth=2)).render(T.sphere_grid_scene(1, 4, 8), T.prng_key(0))\n"
+        "max_depth=2), device='cpu').render(T.sphere_grid_scene(1, 4, 8), "
+        "T.prng_key(0))\n"
         "assert tuple(img.shape) == (4, 4, 3)\n"
+        "import torch\n"
+        "from tinypathtracer_tpu_torch.diff import (AdamState, Params, "
+        "make_train_step)\n"
+        "scene = T.sphere_grid_scene(1, 4, 8)\n"
+        "p = Params.from_scene(scene)\n"
+        "_, _, loss = make_train_step(T.RenderConfig(width=4, height=4, "
+        "spp=1, max_depth=2), device='cpu')(p, AdamState.init(p), scene, "
+        "torch.zeros(4, 4, 3), T.prng_key(0))\n"
+        "assert bool(torch.isfinite(loss))\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -1,10 +1,20 @@
 // Kernel B: the reference-mode path-tracing megakernel, forward.
 //
 // Replaces the TPU kernel tinypathtracer_tpu/ops/mega.py
-// `_make_mega_kernel` (called through `_mega_pallas`; forward, ungated,
-// no save_hits). Plain twin: tinypathtracer_tpu_torch/ops/mega.py
-// `_mega_torch`. Every expression below transcribes the twin's (and the
-// JAX kernel's) in the same order; see hit.cuh for the roundings.
+// `_make_mega_kernel` (called through `_mega_pallas`; ungated). Plain twin:
+// tinypathtracer_tpu_torch/ops/mega.py `_mega_torch`. Every expression
+// below transcribes the twin's (and the JAX kernel's) in the same order;
+// see hit.cuh for the roundings.
+//
+// Two instances per light count: the forward (kSaveHits = false) and the
+// train step's forward (kSaveHits = true), which also writes the per-bounce
+// hit residuals that the backward replays shading on: [8 * depth, N]
+// floats, per bounce the rows slot, t, u, v, slot2, occlusion bitmask
+// (bit li = light li occluded), 0, 0. A bounce the lane never reaches (it
+// missed or died earlier) reads "dead": slot -1, t REAL_MAX, slot2 -1, the
+// rest 0. The emissive bounce keeps its hit (slot, t, u, v) with slot2 -1
+// and occlusion 0; slot2 and occlusion are read only on live lanes. Thread
+// i writes column i of every row, so each row store is coalesced.
 //
 // Design: one thread per path, in place of the TPU's 256-lane block. The
 // thread does the camera closest hit, then loops over up to `depth`
@@ -190,17 +200,31 @@ __device__ __forceinline__ void trace_queries(
   slot_b = arg_b;
 }
 
+// One bounce's rows of the hit residuals (column i of [8 * depth, N]).
+__device__ __forceinline__ void store_hit(float* __restrict__ hits, int n,
+                                          int i, int dep, float slot, float t,
+                                          float u, float v, float slot2,
+                                          float occ) {
+  float* h = hits + (size_t)(8 * dep) * n + i;
+  const float row[8] = {slot, t, u, v, slot2, occ, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) h[(size_t)k * n] = row[k];
+}
+
 // The light count is a template parameter: the per-light state (direction,
 // radiance, occlusion) then takes registers only for lights that exist.
 // Measured on the H100: 104 registers with room for 6 lights, 67 with
 // none, and 1.86x faster on a light-free scene (bit-identical output).
-template <int kLights>
+// kSaveHits adds the residual stores and nothing else: every value it
+// stores is live in the forward already.
+template <int kLights, bool kSaveHits>
 __global__ void mega_kernel(const float* __restrict__ rays8,
                             const float* __restrict__ u8d,
                             const float* __restrict__ planes,
                             const float* __restrict__ shade,
                             const float* __restrict__ lights, int n, int fp,
-                            int depth, float* __restrict__ out) {
+                            int depth, float* __restrict__ out,
+                            float* __restrict__ hits) {
   constexpr int kSlots = kLights > 0 ? kLights : 1;
   __shared__ float s_lights[kSlots * 16];
   for (int k = threadIdx.x; k < kLights * 16; k += blockDim.x)
@@ -219,6 +243,7 @@ __global__ void mega_kernel(const float* __restrict__ rays8,
   bool occluded[kSlots];
 
   int slot, unused;
+  int rows_done = 0;  // bounces whose residual rows are written
   {
     const float d[3] = {dx, dy, dz};
     trace_queries<0>(planes, fp, ox, oy, oz, true, d, slot, false, d,
@@ -226,6 +251,7 @@ __global__ void mega_kernel(const float* __restrict__ rays8,
   }
   for (int dep = 0; dep < depth; ++dep) {
     if (slot < 0) {  // miss: the epilogue adds thr * env(dir); path ends
+      // (its residual row is a dead row, written after the loop)
       mr = tr;
       mg = tg;
       mb = tb;
@@ -264,7 +290,13 @@ __global__ void mega_kernel(const float* __restrict__ rays8,
     rr = rr + tr * hit_em;
     rg = rg + tg * hit_em;
     rb = rb + tb * hit_em;
-    if (emissive) break;
+    if (emissive) {
+      if constexpr (kSaveHits) {
+        store_hit(hits, n, i, dep, (float)slot, tw, uw, vw, -1.f, 0.f);
+        rows_done = dep + 1;
+      }
+      break;
+    }
 
     float ndx, ndy, ndz, ratio;
     sample_bsdf(u0, u1, u2, dx, dy, dz, nx, ny, nz, eta, metallic, ndx, ndy,
@@ -298,6 +330,15 @@ __global__ void mega_kernel(const float* __restrict__ rays8,
     rr = rr + tr * wr * dr;
     rg = rg + tg * wg * dg;
     rb = rb + tb * wb * db;
+    if constexpr (kSaveHits) {
+      float occ = 0.f;
+#pragma unroll
+      for (int li = 0; li < kLights; ++li)
+        occ = occ + (occluded[li] ? (float)(1 << li) : 0.f);
+      store_hit(hits, n, i, dep, (float)slot, tw, uw, vw,
+                (do_extra && slot2 >= 0) ? (float)slot2 : -1.f, occ);
+      rows_done = dep + 1;
+    }
     tr = tr * wr;
     tg = tg * wg;
     tb = tb * wb;
@@ -309,39 +350,76 @@ __global__ void mega_kernel(const float* __restrict__ rays8,
     dz = ndz;
     slot = slot_next;
   }
+  if constexpr (kSaveHits) {
+    for (int dep = rows_done; dep < depth; ++dep)
+      store_hit(hits, n, i, dep, -1.f, tpt::kRealMax, 0.f, 0.f, -1.f, 0.f);
+  }
   const float res[9] = {rr, rg, rb, mr, mg, mb, dx, dy, dz};
 #pragma unroll
   for (int k = 0; k < 16; ++k) out[(size_t)k * n + i] = k < 9 ? res[k] : 0.f;
 }
 
-template <int kLights>
+constexpr int kThreads = 128;
+
+template <int kLights, bool kSaveHits>
 void launch(const float* rays8, const float* u8d, const float* planes,
             const float* shade, const float* lights, int n, int fp, int depth,
-            float* out, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  mega_kernel<kLights><<<blocks, threads, 0, stream>>>(
-      rays8, u8d, planes, shade, lights, n, fp, depth, out);
+            float* out, float* hits, cudaStream_t stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  mega_kernel<kLights, kSaveHits><<<blocks, kThreads, 0, stream>>>(
+      rays8, u8d, planes, shade, lights, n, fp, depth, out, hits);
 }
+
+template <int kLights, bool kSaveHits>
+cudaError_t attributes(cudaFuncAttributes* attr) {
+  return cudaFuncGetAttributes(attr, mega_kernel<kLights, kSaveHits>);
+}
+
+using Launch = void (*)(const float*, const float*, const float*,
+                        const float*, const float*, int, int, int, float*,
+                        float*, cudaStream_t);
+using Attributes = cudaError_t (*)(cudaFuncAttributes*);
+// [save_hits][n_lights]
+constexpr Launch kLaunch[2][kMaxLights + 1] = {
+    {launch<0, false>, launch<1, false>, launch<2, false>, launch<3, false>,
+     launch<4, false>, launch<5, false>, launch<6, false>},
+    {launch<0, true>, launch<1, true>, launch<2, true>, launch<3, true>,
+     launch<4, true>, launch<5, true>, launch<6, true>}};
+constexpr Attributes kAttributes[2][kMaxLights + 1] = {
+    {attributes<0, false>, attributes<1, false>, attributes<2, false>,
+     attributes<3, false>, attributes<4, false>, attributes<5, false>,
+     attributes<6, false>},
+    {attributes<0, true>, attributes<1, true>, attributes<2, true>,
+     attributes<3, true>, attributes<4, true>, attributes<5, true>,
+     attributes<6, true>}};
 
 }  // namespace
 
 // rays8 [8, N], u8d [8*depth, N], planes [Fp, 12] and shade [Fp, 32]
 // (face-major, 16-byte aligned), lights [max(L,1), 16] with L <= 6;
-// out [16, N]: radiance rgb, throughput at miss rgb, final direction, 0.
-// Returns cudaGetLastError() after the launch.
+// out [16, N]: radiance rgb, throughput at miss rgb, final direction, 0;
+// hits: NULL, or [8*depth, N] for the per-bounce hit residuals (the
+// kSaveHits instance). Returns cudaGetLastError() after the launch.
 extern "C" int tpt_mega_trace(const float* rays8, const float* u8d,
                               const float* planes, const float* shade,
                               const float* lights, int n, int fp, int depth,
-                              int n_lights, float* out, void* stream) {
-  using Launch = void (*)(const float*, const float*, const float*,
-                          const float*, const float*, int, int, int, float*,
-                          cudaStream_t);
-  constexpr Launch kByLights[kMaxLights + 1] = {
-      launch<0>, launch<1>, launch<2>, launch<3>, launch<4>, launch<5>,
-      launch<6>};
+                              int n_lights, float* out, float* hits,
+                              void* stream) {
   if (n_lights < 0 || n_lights > kMaxLights) return cudaErrorInvalidValue;
-  kByLights[n_lights](rays8, u8d, planes, shade, lights, n, fp, depth, out,
-                      static_cast<cudaStream_t>(stream));
+  kLaunch[hits != nullptr][n_lights](rays8, u8d, planes, shade, lights, n,
+                                     fp, depth, out, hits,
+                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread and local (spill) bytes per thread of one instance.
+extern "C" int tpt_mega_resources(int n_lights, int save_hits, int* regs,
+                                  int* local_bytes) {
+  if (n_lights < 0 || n_lights > kMaxLights) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = kAttributes[save_hits != 0][n_lights](&attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

@@ -1,0 +1,14 @@
+"""Differentiable / inverse rendering (port of `tinypathtracer_tpu/diff`)."""
+
+from tinypathtracer_tpu_torch.diff.invrender import (AdamState, Params,
+                                                     adam_state_from_optax,
+                                                     adam_step,
+                                                     apply_params,
+                                                     make_train_step,
+                                                     mse_loss,
+                                                     project_physical,
+                                                     render_mean)
+
+__all__ = ["AdamState", "Params", "adam_state_from_optax", "adam_step",
+           "apply_params", "make_train_step", "mse_loss", "project_physical",
+           "render_mean"]

@@ -1,5 +1,5 @@
 """Reference-mode path-tracing megakernel (port of
-`tinypathtracer_tpu/ops/mega.py`, forward only).
+`tinypathtracer_tpu/ops/mega.py`).
 
 One kernel launch traces a whole chunk of paths through every bounce:
 the camera closest hit, then per bounce the shading fetch of the hit
@@ -19,14 +19,23 @@ It shades each bounce with the modular path's own helpers
 (`render.integrator.scatter` and `end_bounce`) and differs from it only
 in how it queries hits. `mega_trace` dispatches on the tensors' device.
 
+With `save_hits` the kernel also records per-bounce hit residuals
+(`unpack_hits` turns them into the integrator's stored-hit layout).
+Under autograd, `trace_paths_mega` is a `torch.autograd.Function` whose
+backward replays only the shading on those residuals
+(`render.integrator.trace_paths(stored_hits=...)`): no intersection runs
+in the backward pass. Each chunk of rays is its own node, so the replay
+graph of one chunk at a time is alive during `backward()`.
+
 Scope (`mega_available`): reference mode, <= 8192 padded faces, <= 6
-delta lights. The stored-hit residuals (`save_hits`) and the custom
-backward are a later port item.
+delta lights. The textured fast path and the JAX package's "replay"
+backward are not ported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -37,8 +46,9 @@ from tinypathtracer_tpu_torch.ops.lights import lights_block
 from tinypathtracer_tpu_torch.ops.sampling import fold_all, lane_uniform
 from tinypathtracer_tpu_torch.render.integrator import (Paths, TraceData,
                                                         end_bounce, env_miss,
-                                                        scatter)
+                                                        scatter, trace_paths)
 from tinypathtracer_tpu_torch.utils import cuda_build
+from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
 
 MEGA_MAX_FACES = 8192
 MAX_LIGHTS = 6
@@ -83,12 +93,27 @@ def _check_mega_args(rays8, u8d, planesT, shadeT, lights, depth, n_lights):
             f"{depth}, n_lights {n_lights}")
 
 
+def _dead_hits(depth: int, n: int, like):
+    """[8*depth, N] residual rows of bounces no lane reached: slot -1,
+    t REAL_MAX, slot2 -1, the rest 0."""
+    rows = like.new_zeros((depth, 8, n))
+    rows[:, 0] = -1.0
+    rows[:, 1] = REAL_MAX
+    rows[:, 4] = -1.0
+    return rows.reshape(8 * depth, n)
+
+
 def _mega_torch(rays8, u8d, planesT, shadeT, lights, depth: int,
-                n_lights: int):
+                n_lights: int, save_hits: bool = False):
     """Plain twin of kernel B. rays8 [8, N] (origin xyz, 0, dir xyz, 0);
     u8d [8*depth, N] (6 uniforms + 2 zero rows per bounce); planesT
     [Fp, 12]; shadeT [32, Fp]; lights [max(L, 1), 16]. Returns [16, N]:
-    rows 0-2 radiance, 3-5 throughput at miss, 6-8 final direction."""
+    rows 0-2 radiance, 3-5 throughput at miss, 6-8 final direction; with
+    save_hits also the [8*depth, N] hit residuals, per bounce the rows
+    slot, t, u, v (of the lane's hit; slot -1 and t REAL_MAX on a dead or
+    missing lane), slot2 (the extra emitter query's hit, -1 unless the
+    lane goes on and the query counts), the occlusion bits (sum of
+    2**li over occluded lights, 0 unless the lane goes on), 0, 0."""
     n = rays8.shape[1]
     shade = shadeT.T                                     # [Fp, 32]
     st = Paths.start((rays8[0], rays8[1], rays8[2]),
@@ -96,6 +121,7 @@ def _mega_torch(rays8, u8d, planesT, shadeT, lights, depth: int,
     ((_, slot),), _ = scan_queries(planesT, st.o, [st.d], 1)
     zeros = rays8.new_zeros((n,))
     thr_miss = (zeros, zeros, zeros)
+    hits = _dead_hits(depth, n, rays8) if save_hits else None
     for dep in range(depth):
         if not bool(st.alive.any()):
             break        # dead lanes never change state
@@ -126,52 +152,100 @@ def _mega_torch(rays8, u8d, planesT, shadeT, lights, depth: int,
             slot_n.index_put_((idx,), res[1][1])
         unocc = [~torch.zeros_like(sc.live).index_put_((idx,), o)
                  for o in occ]
+        if save_hits:
+            hitm = st.alive & ~miss
+            occm = zeros
+            for li, free in enumerate(unocc):
+                occm = occm + torch.where(sc.live & ~free, float(1 << li), 0.0)
+            s2 = torch.where(sc.live & sc.do_extra & (slot2 >= 0), slot2, -1)
+            hits[8 * dep:8 * dep + 8] = torch.stack([
+                torch.where(st.alive, slot, -1).float(),
+                torch.where(hitm, t, REAL_MAX), torch.where(hitm, bu, 0.0),
+                torch.where(hitm, bv, 0.0), s2.float(), occm, zeros, zeros])
         st = end_bounce(st, sc, slot2.long(), shade[:, _ROW_EM], unocc)
         slot = slot_n
-    return torch.stack([*st.rad, *thr_miss, *st.d] + [zeros] * 7, dim=0)
+    out = torch.stack([*st.rad, *thr_miss, *st.d] + [zeros] * 7, dim=0)
+    return (out, hits) if save_hits else out
 
 
 @functools.cache
 def _lib():
     lib = cuda_build.load_library("mega")
     lib.tpt_mega_trace.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 2
+        + [ctypes.c_void_p] * 3
     lib.tpt_mega_trace.restype = ctypes.c_int
+    lib.tpt_mega_resources.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_void_p]
+    lib.tpt_mega_resources.restype = ctypes.c_int
     return lib
 
 
+def kernel_resources(n_lights: int, save_hits: bool):
+    """(registers per thread, local spill bytes per thread) of one
+    instance of kernel B, from cudaFuncGetAttributes."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    status = _lib().tpt_mega_resources(n_lights, int(save_hits),
+                                       ctypes.byref(regs), ctypes.byref(local))
+    cuda_build.check_launch(status, "mega_resources")
+    return regs.value, local.value
+
+
 def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
-               n_lights: int):
+               n_lights: int, save_hits: bool):
     shade_rows = shadeT.T.contiguous()                   # [Fp, 32] face-major
     cuda_build.check_operands(rays8, u8d, planesT, shade_rows, lights)
     n, fp = rays8.shape[1], planesT.shape[0]
     out = torch.empty((16, n), dtype=torch.float32, device=rays8.device)
+    hits = (torch.empty((8 * depth, n), dtype=torch.float32,
+                        device=rays8.device) if save_hits else None)
     if n == 0:
-        return out
+        return (out, hits) if save_hits else out
     status = _lib().tpt_mega_trace(
         rays8.data_ptr(), u8d.data_ptr(), planesT.data_ptr(),
         shade_rows.data_ptr(), lights.data_ptr(), n, fp, depth, n_lights,
-        out.data_ptr(), cuda_build.stream_ptr(rays8.device))
+        out.data_ptr(), hits.data_ptr() if save_hits else None,
+        cuda_build.stream_ptr(rays8.device))
     cuda_build.check_launch(status, "mega_trace")
+    if save_hits:
+        mega_trace.launches_save_hits += 1
+        return out, hits
     mega_trace.launches += 1
     return out
 
 
 def mega_trace(rays8, u8d, planesT, shadeT, lights, depth: int,
-               n_lights: int):
+               n_lights: int, save_hits: bool = False):
     """Trace paths to completion: kernel B on CUDA tensors, its plain
-    twin on CPU tensors. See `_mega_torch` for the layouts."""
+    twin on CPU tensors. Returns out, or (out, hits) with save_hits. See
+    `_mega_torch` for the layouts. Launches are counted per instance:
+    `mega_trace.launches` (forward) and `mega_trace.launches_save_hits`."""
     _check_mega_args(rays8, u8d, planesT, shadeT, lights, depth, n_lights)
     if rays8.device.type == "cuda":
         return _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth,
-                          n_lights)
+                          n_lights, save_hits)
     if rays8.device.type == "cpu":
         return _mega_torch(rays8, u8d, planesT, shadeT, lights, depth,
-                           n_lights)
+                           n_lights, save_hits)
     raise ValueError(f"mega_trace has no kernel for device {rays8.device}")
 
 
 mega_trace.launches = 0
+mega_trace.launches_save_hits = 0
+
+
+def unpack_hits(hits, perm, depth: int):
+    """Kernel B's [8*depth, N] residuals -> the integrator's stored_hits:
+    (fid [D, N], t [D, N], uv [D, N, 2], fid2 [D, N], occ [D, N]), slots
+    turned into original face ids through the Woop permutation (-1 stays
+    -1), as `closest_hit_dense` reports them."""
+    hr = hits.reshape(depth, 8, -1)
+
+    def face(slot_row):
+        slot = slot_row.long()
+        return torch.where(slot >= 0, perm[torch.clamp_min(slot, 0)], -1)
+
+    return (face(hr[:, 0]), hr[:, 1], torch.stack([hr[:, 2], hr[:, 3]], -1),
+            face(hr[:, 4]), hr[:, 5].long())
 
 
 def bounce_uniforms(lane_keys, depth: int):
@@ -198,15 +272,69 @@ def mega_operands(data: TraceData, cfg, woop: WoopTris, origins, dirs,
             shadeT, lights_block(data))
 
 
-def trace_paths_mega(data: TraceData, cfg, woop: WoopTris, origins, dirs,
-                     lane_keys):
-    """Megakernel trace of a ray batch; returns radiance [N, 3], equal by
-    key to `render.integrator.trace_paths` on the dense intersector."""
-    out = mega_trace(*mega_operands(data, cfg, woop, origins, dirs,
-                                    lane_keys),
-                     depth=cfg.max_depth, n_lights=data.n_lights)
-    # env epilogue: a lane misses at most once (miss terminates), so the
-    # kernel returns the throughput at the miss and the final direction
+def _env_epilogue(data: TraceData, cfg, out):
+    """Radiance [N, 3] from kernel B's rows: a lane misses at most once
+    (miss terminates), so the kernel returns the throughput at the miss
+    and the final direction, and the env lookup runs here."""
     er, eg, eb = env_miss(data, cfg, out[6], out[7], out[8])
     return torch.stack([out[0] + out[3] * er, out[1] + out[4] * eg,
                         out[2] + out[5] * eb], dim=1)
+
+
+_DATA_FIELDS = [f.name for f in dataclasses.fields(TraceData)]
+
+
+class _MegaStored(torch.autograd.Function):
+    """The megakernel forward with the stored-hit backward (JAX
+    `trace_paths_mega`, mega_bwd="stored").
+
+    Inputs after (cfg, woop, lane_keys): origins, dirs and the TraceData
+    fields in declaration order, passed explicitly: a tensor the
+    function only captured would get no gradient. The forward saves the
+    hit residuals and the uniforms (8 * depth floats each per lane), so
+    the backward neither intersects nor draws again."""
+
+    @staticmethod
+    def forward(ctx, cfg, woop, lane_keys, origins, dirs, *fields):
+        data = TraceData(*fields)
+        ops = mega_operands(data, cfg, woop, origins, dirs, lane_keys)
+        out, hits = mega_trace(*ops, depth=cfg.max_depth,
+                               n_lights=data.n_lights, save_hits=True)
+        ctx.cfg = cfg
+        ctx.save_for_backward(ops[1], hits, woop.perm, origins, dirs, *fields)
+        return _env_epilogue(data, cfg, out)
+
+    @staticmethod
+    def backward(ctx, ct):
+        u8d, hits, perm, *inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        cfg = ctx.cfg
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() if need else x
+                      for x, need in zip(inputs, needs)]
+            rad = trace_paths(TraceData(*leaves[2:]), cfg, None, leaves[0],
+                              leaves[1], None,
+                              stored_hits=unpack_hits(hits, perm,
+                                                      cfg.max_depth),
+                              uniforms=u8d)
+            wrt = [x for x, need in zip(leaves, needs) if need]
+            grads = iter(torch.autograd.grad(rad, wrt, ct, allow_unused=True))
+        return (None, None, None) + tuple(next(grads) if need else None
+                                          for need in needs)
+
+
+def trace_paths_mega(data: TraceData, cfg, woop: WoopTris, origins, dirs,
+                     lane_keys):
+    """Megakernel trace of a ray batch; returns radiance [N, 3], equal by
+    key to `render.integrator.trace_paths` on the dense intersector.
+    Differentiable: when autograd records and an input needs a gradient,
+    the forward runs the save_hits instance and the backward replays the
+    shading on its residuals (`_MegaStored`)."""
+    fields = [getattr(data, name) for name in _DATA_FIELDS]
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in [origins, dirs] + fields):
+        return _MegaStored.apply(cfg, woop, lane_keys, origins, dirs, *fields)
+    out = mega_trace(*mega_operands(data, cfg, woop, origins, dirs,
+                                    lane_keys),
+                     depth=cfg.max_depth, n_lights=data.n_lights)
+    return _env_epilogue(data, cfg, out)

@@ -18,8 +18,13 @@ shares both. The reference estimator's quirks are kept on purpose:
   * shadow rays use full closest-hit occlusion with no max-distance
     clip: geometry beyond a point light still shadows it.
 
-Forward only: physical mode, textures and the stored-hit replay (the
-backward pass) are later port items.
+Gradients follow the JAX package's path-replay convention: hit ids
+are detached (every intersector call sees detached rays), and the
+surface point stays differentiable through `_HitSurface`, whose backward
+recomputes (t, u, v) with Moller-Trumbore. `trace_paths(...,
+stored_hits=...)` replays the shading alone on hits recorded by the
+megakernel (the backward pass of ops/mega.py); no intersector runs
+there. Physical mode and textures are later port items.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from tinypathtracer_tpu_torch.ops import shading_c
 from tinypathtracer_tpu_torch.ops.lights import (lights_block,
                                                  sample_delta_light)
 from tinypathtracer_tpu_torch.ops.sampling import fold_all, lane_uniform
+from tinypathtracer_tpu_torch.ops.traverse import _ray_tri_single
 
 
 @dataclasses.dataclass
@@ -94,12 +100,20 @@ class TraceData:
         return self.light_kind.shape[0]
 
 
+def gather(table, dim: int, idx):
+    """table indexed by idx along dim. index_select, not table[idx]: its
+    backward is index_add_ (atomics on CUDA). The backward of advanced
+    indexing is a sorted accumulate that adds each run of equal indices
+    serially, and a few faces and env texels take most lanes' hits."""
+    return torch.index_select(table, dim, idx)
+
+
 def env_miss(data: TraceData, cfg: RenderConfig, dx, dy, dz):
     """Env radiance (r, g, b) seen along a direction (point sampled)."""
     eh, ew = data.env_radiance.shape[0], data.env_radiance.shape[1]
     etex = shading_c.env_texel_c(eh, ew, dx, dy, dz)
-    return (data.env_r[etex] * cfg.env_scale, data.env_g[etex] * cfg.env_scale,
-            data.env_b[etex] * cfg.env_scale)
+    return tuple(gather(ch, 0, etex) * cfg.env_scale
+                 for ch in (data.env_r, data.env_g, data.env_b))
 
 
 Vec = tuple  # three [N] tensors: xyz or rgb
@@ -189,7 +203,7 @@ def end_bounce(st: Paths, sc: Scatter, hit2, em_table, unocc) -> Paths:
     miss, indexing em_table, the emission per face; unocc: per delta
     light, [N] bool, nothing between the hit point and the light.
     """
-    em2 = em_table[torch.clamp_min(hit2, 0)]
+    em2 = gather(em_table, 0, torch.clamp_min(hit2, 0))
     em2 = torch.where((hit2 >= 0) & sc.do_extra, em2, 0.0)
     direct = [em2, em2, em2]
     # Delta-light NEE (quirk: no cos / BRDF weighting)
@@ -209,41 +223,102 @@ def end_bounce(st: Paths, sc: Scatter, hit2, em_table, unocc) -> Paths:
         rad=rad, alive=live)
 
 
+class _HitSurface(torch.autograd.Function):
+    """The intersector's own (t, u, v) as the primal hit data, with
+    gradients from a Moller-Trumbore recompute that runs in the backward
+    pass only (JAX `_hit_surface`). The hit face is not differentiable;
+    the surface point is, with respect to the ray and the triangle."""
+
+    @staticmethod
+    def forward(ctx, o, d, tri_verts, fid, t_k, u_k, v_k):
+        ctx.save_for_backward(o, d, tri_verts, fid)
+        return t_k, u_k, v_k
+
+    @staticmethod
+    def backward(ctx, gt, gu, gv):
+        o, d, tri_verts, fid = ctx.saved_tensors
+        need_o, need_d, need_tv = ctx.needs_input_grad[:3]
+        if not (need_o or need_d or need_tv):
+            return (None,) * 7
+        live = fid >= 0
+        fid_c = torch.clamp_min(fid, 0)
+        with torch.enable_grad():
+            o_ = o.detach().requires_grad_()
+            d_ = d.detach().requires_grad_()
+            tv = tri_verts.detach()[fid_c].requires_grad_()
+            t, u, v, _ = _ray_tri_single(o_, d_, tv[:, 0], tv[:, 1], tv[:, 2])
+        # zero the miss lanes' incoming gradients BEFORE differentiating
+        # the recompute: their face-0 stand-in is garbage
+        cts = [torch.where(live, c, 0.0) for c in (gt, gu, gv)]
+        go, gd, gtv = torch.autograd.grad((t, u, v), (o_, d_, tv), cts)
+        g_tri = None
+        if need_tv:
+            gtv = torch.where(live[:, None, None], gtv, 0.0)
+            g_tri = torch.zeros_like(tri_verts).index_add_(0, fid_c, gtv)
+        return (go if need_o else None, gd if need_d else None, g_tri,
+                None, None, None, None)
+
+
 # closest_hit(origins [N, 3], dirs [N, 3], mask=[N] bool or None)
 #   -> (fid [N], t [N], uv [N, 2]); mask=False lanes report miss.
 HitFn = Callable[..., tuple]
 
 
 def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
-                origins, dirs, lane_keys):
+                origins, dirs, lane_keys, stored_hits=None, uniforms=None):
     """Trace a batch of rays to completion; returns radiance [N, 3].
 
     lane_keys: [N, 2] keys, one per ray lane. Every draw of a bounce
     comes from the lane's key (`lane_uniform(fold_all(keys, depth), 6)`),
-    so results do not depend on batching. The loop stops when every lane
-    is dead: dead lanes never change state.
+    so results do not depend on batching. uniforms: those draws
+    precomputed, [8 * max_depth, N] (ops/mega.py `bounce_uniforms`);
+    lane_keys is then not read. The loop stops when every lane is dead:
+    dead lanes never change state.
+
+    stored_hits: per-bounce hits recorded by an identical trace (the
+    megakernel forward, ops/mega.py `unpack_hits`): (fid [D, N], t
+    [D, N], uv [D, N, 2], fid2 [D, N], occ [D, N], the delta-light
+    occlusion bits). When given, no intersector runs (closest_hit may be
+    None): the loop replays the shading on the recorded hits.
     """
+    def hit_query(o, d, mask):
+        # the discrete traversal is detached; _HitSurface restores the
+        # surface point's gradient
+        fid, t, uv = closest_hit(o.detach(), d.detach(), mask=mask)
+        return fid, t.detach(), uv.detach()
+
     st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
     lights = lights_block(data)
     for depth in range(cfg.max_depth):
         if not bool(st.alive.any()):
             break
-        u = lane_uniform(fold_all(lane_keys, depth), 6).T
-        fid, t, uv = closest_hit(torch.stack(st.o, dim=1),
-                                 torch.stack(st.d, dim=1), mask=st.alive)
+        u = (lane_uniform(fold_all(lane_keys, depth), 6).T if uniforms is None
+             else uniforms[8 * depth:8 * depth + 6])
+        o3, d3 = torch.stack(st.o, dim=1), torch.stack(st.d, dim=1)
+        if stored_hits is None:
+            fid, t_k, uv = hit_query(o3, d3, st.alive)
+        else:
+            fid, t_k, uv = (h[depth] for h in stored_hits[:3])
         miss = fid < 0
         # Terminal: environment on miss
         env = env_miss(data, cfg, *st.d)
         count_env = st.alive & miss
         st.rad = tuple(r + tc * torch.where(count_env, e, 0.0)
                        for r, tc, e in zip(st.rad, st.thr, env))
-        st, sc = scatter(st, miss, t, uv[:, 0], uv[:, 1],
-                         data.shade_packT[:, torch.clamp_min(fid, 0)], u,
-                         lights, data.n_lights)
-        h3 = torch.stack(sc.h, dim=1)
-        fid2, _, _ = closest_hit(h3, torch.stack(sc.d2, dim=1),
-                                 mask=sc.live & sc.do_extra)
-        unocc = [closest_hit(h3, torch.stack(wi, dim=1), mask=sc.live)[0] < 0
-                 for wi, _ in sc.lights]
+        t, bu, bv = _HitSurface.apply(o3, d3, data.tri_verts, fid,
+                                      torch.where(miss, 1.0, t_k),
+                                      uv[:, 0], uv[:, 1])
+        st, sc = scatter(st, miss, t, bu, bv,
+                         gather(data.shade_packT, 1, torch.clamp_min(fid, 0)),
+                         u, lights, data.n_lights)
+        if stored_hits is None:
+            h3 = torch.stack(sc.h, dim=1)
+            fid2, _, _ = hit_query(h3, torch.stack(sc.d2, dim=1),
+                                   mask=sc.live & sc.do_extra)
+            unocc = [hit_query(h3, torch.stack(wi, dim=1), mask=sc.live)[0] < 0
+                     for wi, _ in sc.lights]
+        else:
+            fid2, occ = stored_hits[3][depth], stored_hits[4][depth]
+            unocc = [((occ >> li) & 1) == 0 for li in range(data.n_lights)]
         st = end_bounce(st, sc, fid2, data.face_emission, unocc)
     return torch.stack(st.rad, dim=1)

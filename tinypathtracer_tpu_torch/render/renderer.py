@@ -9,8 +9,10 @@ qualifies and `cfg.megakernel` is set, else the modular bounce loop on
 the dense closest-hit kernel (render/integrator.py).
 
 Kernels run where the scene's tensors live: on CUDA the hand-written
-kernels, on the CPU their plain PyTorch twins. Forward only: rendering
-runs under `torch.inference_mode()`.
+kernels, on the CPU their plain PyTorch twins. `render_pixel_ids` and
+`render_frame` are differentiable (diff/invrender.py differentiates
+them); `Renderer.render` runs under `torch.inference_mode()`. Entry
+points run on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ class PipelineState:
 
 def prepare_state(scene: FlatScene, cfg: RenderConfig) -> PipelineState:
     data = TraceData.from_scene(scene)
+    # the intersector's tables carry no gradient (hit ids are detached)
     return PipelineState(scene=scene, data=data,
-                         woop=precompute_woop(data.tri_verts))
+                         woop=precompute_woop(data.tri_verts.detach()))
 
 
 def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key):
@@ -98,21 +101,29 @@ def render_frame(scene: FlatScene, cfg: RenderConfig, key):
         cfg.height, cfg.width, 3)
 
 
+def resolve_device(device, caller: str) -> torch.device:
+    """torch.device of an entry point: "cuda" or "cpu". A card that is
+    not there raises rather than the work running elsewhere."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}(device={device!r}): CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
 class Renderer:
-    """Render pipeline for a fixed config on one device.
+    """Render pipeline for a fixed config on one device, the card by
+    default (device="cpu" runs the plain twins).
 
     `render` moves the scene and key to the device; a device that is
     not available raises here rather than rendering elsewhere.
     """
 
-    def __init__(self, cfg: RenderConfig, device="cpu"):
+    def __init__(self, cfg: RenderConfig, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"Renderer(device={device!r}): CUDA is not available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device!r}")
+        self.device = resolve_device(device, "Renderer")
 
     def render(self, scene: FlatScene, key):
         """Returns the mean-radiance image [H, W, 3], top-down rows."""
