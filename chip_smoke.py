@@ -6,8 +6,8 @@ one NVIDIA GPU.
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits
 non-zero):
-  1. the card, the versions, and the build of both CUDA kernels from
-     the sources in this checkout;
+  1. the card, the versions, and the build of the three CUDA kernels
+     from the sources in this checkout;
   2. kernel A (dense closest hit) against its plain PyTorch twin on the
      card: 65,536 rays from inside the 1,804-face room plus a ragged
      batch; (slot, t, u, v) must be exactly equal;
@@ -37,7 +37,24 @@ non-zero):
      kernel (no intersection in the backward), and give finite gradients;
   8. megakernel-path against modular-path gradients on the card, 64x64
      @4 spp d8, room and 3-light room (rtol 1e-5; CUDA's index backward
-     sums with atomics in no fixed order).
+     sums with atomics in no fixed order);
+  9. kernel C (the packet traversal) against its plain twin on the card
+     in the 61,452-face scene (65,536 slots, 128 chunks): 65,536 random
+     rays, a ragged batch and a half-masked batch; (slot, t, u, v) and
+     the visit counts must be exactly equal;
+ 10. kernel C against kernel A at the main path's shapes: one 2**20-lane
+     camera chunk of the large scene and that chunk's first-bounce rays;
+     exactly equal; times of kernel C and kernel A on the same rays and
+     of the twin, the visits per query, and the lanes kernel C would get
+     wrong without its box margins;
+ 11. the large-scene main paths through the public entry points, launch
+     counters zeroed before each and read after: the 512x512 @16 spp d8
+     frame of the 61,452-face scene (which the renderer routes to the
+     packet traversal) and its train step (one warm-up, 3 timed, peak
+     memory), then one profiled run of each; each must launch kernel C
+     and neither kernel A nor B;
+ 12. the same frame through the modular loop on kernel A, forced through
+     the pipeline state: bit-equal to the packet frame.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s.
@@ -56,6 +73,9 @@ import torch
 
 ROOM = (2, 8, 16)          # sphere_grid_scene(grid, n_lat, n_lon): 1,804 faces
 BIG_ROOM = (2, 16, 32)     # 7,692 faces, 8,192 padded
+LARGE = (4, 16, 32)        # 61,452 faces, 65,536 padded: the packet route
+# kernel C against its twin: (rays, half of them masked)
+TWIN_BATCHES = ((65536, False), (1037, False), (65536, True))
 MEGA_ATOL = 1e-5
 GRAD_RTOL = 1e-5
 LR = 1e-2
@@ -72,6 +92,12 @@ HBM_BYTES_PER_S = 3.35e12
 # u and v (2 FMA = 4), u + v (1) = 21 per (direction, triangle)
 OPS_ORIGIN = 18
 OPS_DIRECTION = 21
+# fp32 operations of kernel C's slab test of one ray against one chunk
+# box (csrc/packet.cu enter_box): 6 margin adds, 6 subtractions, 6
+# multiplies (min, max and comparisons not counted); and per live ray 3
+# reciprocals
+OPS_SLAB = 18
+OPS_RECIPROCALS = 3
 
 
 def log(*args):
@@ -150,6 +176,262 @@ def mega_work(hits, shadeT, depth, n_lights, save_hits):
     if save_hits:
         nbytes += n * 32 * depth
     return origins * OPS_ORIGIN + directions * OPS_DIRECTION, nbytes
+
+
+def packet_work(visits, pk):
+    """(operations, bytes) of kernel C on rays whose visit counts are
+    `visits`: per visited chunk tc pair tests, per live ray one rescan
+    of the C boxes per visit plus the last one that finds nothing, and
+    its reciprocals. Bytes: rays [N, 8] read, (t, slot, u, v, visits)
+    written, the planes and the boxes read once."""
+    live = int((visits > 0).sum())
+    n_visits = int(visits.sum())
+    ops = (n_visits * pk.tc * (OPS_ORIGIN + OPS_DIRECTION)
+           + (n_visits + live) * pk.n_chunks * OPS_SLAB
+           + live * OPS_RECIPROCALS)
+    nbytes = (visits.shape[0] * (32 + 20) + pk.woop.n_padded * 48
+              + pk.n_chunks * 32)
+    return ops, nbytes
+
+
+def check_equal(got, want, what, names):
+    """Exact equality of a kernel's outputs and its reference's."""
+    bad = [f"{nm}: {int((g != w).sum())} differ" for g, w, nm
+           in zip(got, want, names) if not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"{what}: {', '.join(bad)}")
+
+
+def random_rays(n, gen, alive=None):
+    """rays [n, 8] from inside the room in random directions, every 16th
+    with a zero x component; the alive flag in column 6 (all alive by
+    default)."""
+    o = torch.rand((n, 3), generator=gen) * 9.0 - 4.5
+    d = torch.randn((n, 3), generator=gen)
+    d[::16, 0] = 0.0
+    d = torch.nn.functional.normalize(d, dim=1)
+    a = torch.ones((n, 1)) if alive is None else alive.float()[:, None]
+    return torch.cat([o, d, a, torch.zeros((n, 1))], dim=1)
+
+
+def packet_vs_twin(pk, dev):
+    """Phase 9: kernel C against its twin on random rays: a full batch,
+    a ragged one and a half-masked one. Returns the max |uv| error."""
+    from tinypathtracer_tpu_torch.ops import packet
+
+    gen = torch.Generator().manual_seed(1)
+    err = 0.0
+    for n, half in TWIN_BATCHES:
+        alive = (torch.rand(n, generator=gen) < 0.5) if half else None
+        rays = random_rays(n, gen, alive).to(dev)
+        got = packet.packet_hit(rays, pk.woop.planes, pk.boxes, pk.tc)
+        want = packet._packet_torch(rays, pk.woop.planes, pk.boxes, pk.tc)
+        torch.cuda.synchronize()
+        what = f"kernel C vs twin, {n} rays{', half masked' if half else ''}"
+        check_equal(got, want, what, ("t", "slot", "uv", "visits"))
+        err = max(err, float((got[2] - want[2]).abs().max()))
+        v = got[3].float()
+        log(f"{what} x {pk.woop.n_padded} slots ({pk.n_chunks} chunks of "
+            f"{pk.tc}): exact, visits included; hit share "
+            f"{float((got[1] >= 0).float().mean()):.4f}, visits per live ray "
+            f"{float(v[v > 0].mean()):.2f} (max {int(v.max())})")
+        if half and bool((got[3][~alive.to(dev)] != 0).any()):
+            raise AssertionError("a dead lane of kernel C tested a chunk")
+    return err
+
+
+def first_bounce_rays(state, cfg, o, d, keys):
+    """The rays of the first bounce after the camera query (origins at
+    the camera rays' hits, the BSDF directions) and their alive mask,
+    recorded from the modular loop's own queries on kernel A."""
+    from tinypathtracer_tpu_torch.ops.dense import closest_hit_dense
+    from tinypathtracer_tpu_torch.render.integrator import trace_paths
+
+    seen = []
+
+    def spy(o_, d_, mask=None):
+        seen.append((o_, d_, mask))
+        return closest_hit_dense(o_, d_, state.woop, mask=mask)
+
+    trace_paths(state.data, dataclasses.replace(cfg, max_depth=2), spy, o, d,
+                keys)
+    return seen[2]        # camera, extra emitter query, then bounce 1
+
+
+def packet_vs_dense(T, cfg, host_scene, key, dev):
+    """Phase 10: kernel C against kernel A on one 2**20-lane camera chunk
+    of the large scene and on its first-bounce rays, exactly; times of
+    C, A and the twin, kernel C's work and bound on each. Also counts the
+    live lanes on which kernel C with the boxes not widened by their
+    margins (the JAX package's slab test) would differ from kernel A.
+    Returns (ms, twin ms, max |uv| error, work) of the camera rays."""
+    from tinypathtracer_tpu_torch.ops import dense, packet
+    from tinypathtracer_tpu_torch.render.renderer import (lane_rays,
+                                                          prepare_state)
+
+    scene = host_scene.to(dev)
+    state = prepare_state(scene, cfg)
+    pk = state.packet
+    chunk = cfg.rays_per_dispatch // cfg.spp
+    o, d, keys = lane_rays(scene, cfg, torch.arange(chunk, device=dev), key)
+    ob, db, alive = first_bounce_rays(state, cfg, o, d, keys)
+    err, res = 0.0, {}
+    for name, (oo, dd, mask) in (("camera", (o, d, None)),
+                                 ("first-bounce", (ob, db, alive))):
+        n = oo.shape[0]
+        a = torch.ones((n, 1), device=dev) if mask is None \
+            else mask.float()[:, None]
+        rays = torch.cat([oo, dd, a, torch.zeros((n, 1), device=dev)],
+                         dim=1).contiguous()
+        c_ms, got = cuda_ms(lambda: packet.packet_hit(
+            rays, pk.woop.planes, pk.boxes, pk.tc), 5)
+        a_ms, want = cuda_ms(lambda: dense.dense_hit(rays, pk.woop.planes), 5)
+        live = a[:, 0] != 0
+        check_equal([x[live] for x in got[:3]], [x[live] for x in want],
+                    f"kernel C vs kernel A, {name} rays",
+                    ("t", "slot", "uv"))
+        check_equal(packet.closest_hit_packet(oo, dd, pk, mask=mask),
+                    dense.closest_hit_dense(oo, dd, pk.woop, mask=mask),
+                    f"closest_hit_packet vs closest_hit_dense, {name} rays",
+                    ("fid", "t", "uv"))
+        err = max(err, float((got[2][live] - want[2][live]).abs().max()))
+        v = got[3][live].float()
+        share = float((got[1][live] >= 0).float().mean())
+        res[name] = (c_ms, got[3])
+        ops, nbytes = packet_work(got[3], pk)
+        log(f"kernel C vs kernel A, {name} rays: {n} lanes, "
+            f"{int(live.sum())} live, exact; hit share {share:.4f}; visits "
+            f"per live ray {float(v.mean()):.3f} of {pk.n_chunks} chunks "
+            f"(max {int(v.max())}); kernel C {c_ms:.2f} ms (work "
+            f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
+            f"{bound(ops, nbytes)[0]:.3f} ms), kernel A {a_ms:.2f} ms on the "
+            f"same rays")
+        boxes = pk.boxes.clone()
+        boxes[:, 7] = 0.0
+        bare = packet.packet_hit(rays, pk.woop.planes, boxes, pk.tc)
+        lost = ((bare[1] != want[1]) | (bare[0] != want[0])) & live
+        log(f"  without the box margins kernel C would differ from kernel A "
+            f"on {int(lost.sum())} of these live lanes")
+        if name == "camera":
+            plain_ms, twin = cuda_ms(lambda: packet._packet_torch(
+                rays, pk.woop.planes, pk.boxes, pk.tc), 1, warm=False)
+            check_equal(got, twin, "kernel C vs twin, camera rays",
+                        ("t", "slot", "uv", "visits"))
+            log(f"kernel C vs twin, {n} camera rays: exact; plain twin "
+                f"{plain_ms:.1f} ms")
+    c_ms, visits = res["camera"]
+    return c_ms, plain_ms, err, packet_work(visits, pk)
+
+
+def zero_launches():
+    from tinypathtracer_tpu_torch.ops import dense, mega, packet
+
+    dense.dense_hit.launches = 0
+    mega.mega_trace.launches = 0
+    mega.mega_trace.launches_save_hits = 0
+    packet.packet_hit.launches = 0
+
+
+def read_launches():
+    from tinypathtracer_tpu_torch.ops import dense, mega, packet
+
+    return {"packet": packet.packet_hit.launches,
+            "dense": dense.dense_hit.launches,
+            "mega": mega.mega_trace.launches,
+            "mega_save_hits": mega.mega_trace.launches_save_hits}
+
+
+def check_packet_route(launches, what):
+    if not (launches["packet"] > 0 and launches["dense"] == 0
+            and launches["mega"] == 0 and launches["mega_save_hits"] == 0):
+        raise AssertionError(f"{what} must launch kernel C and neither "
+                             f"kernel A nor B: {launches}")
+
+
+def large_scene_paths(T, cfg, host_scene, key, dev):
+    """Phases 11-12: the large scene's frame and train step through the
+    public entry points (packet route), then the frame forced onto
+    kernel A. Returns the frame's launches."""
+    from tinypathtracer_tpu_torch.diff import invrender as inv
+    from tinypathtracer_tpu_torch.render import film
+    from tinypathtracer_tpu_torch.render.renderer import (prepare_state,
+                                                          render_pixel_ids)
+
+    n_rays = cfg.n_pixels * cfg.spp
+    r = T.Renderer(cfg, device=dev.type)
+    zero_launches()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = r.render(host_scene, key)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    frame_launches = read_launches()
+    log(f"large scene, packet route: {cfg.width}x{cfg.height} @{cfg.spp}spp "
+        f"d{cfg.max_depth}, {n_rays} camera rays: best of 3 "
+        f"{best * 1e3:.1f} ms, {n_rays / best:,.0f} rays/s, image mean "
+        f"{float(img.mean()):.5f}; launches in 3 frames {frame_launches}")
+    check_packet_route(frame_launches, "the large-scene frame")
+    profile_step("large-scene frame", r.render, host_scene, key)
+    if not (img.shape == (cfg.height, cfg.width, 3)
+            and torch.isfinite(img).all() and float(img.mean()) > 0.01):
+        raise AssertionError("large-scene frame is not a finite, lit image")
+
+    scene = host_scene.to(dev)
+    params = inv.Params.from_scene(scene)
+    state = inv.AdamState.init(params)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    step = inv.make_train_step(cfg, LR, device=dev.type)
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    best_step = float("inf")
+    for i in range(4):                    # one warm-up step, then 3 timed
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, scene, target, T.prng_key(i + 1, dev))
+        loss = float(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i:
+            best_step = min(best_step, dt)
+        log(f"large-scene train step {i} "
+            f"({'warm-up' if i == 0 else 'timed'}): {dt * 1e3:.1f} ms, "
+            f"loss {loss:.6f}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"large-scene loss is not finite: {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    step_launches = read_launches()
+    log(f"large-scene train step: best of 3 {best_step * 1e3:.1f} ms, "
+        f"{n_rays / best_step:,.0f} fwd+bwd camera rays/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches in 4 steps {step_launches}")
+    check_packet_route(step_launches, "the large-scene train step")
+    profile_step("large-scene train step", step, params, state, scene,
+                 target, T.prng_key(1, dev))
+
+    with torch.inference_mode():
+        st = prepare_state(scene, cfg)
+        st = dataclasses.replace(st, packet=None)     # kernel A's sweep
+        pix = torch.arange(cfg.n_pixels, device=dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        dense_img = film.to_image(render_pixel_ids(st, cfg, pix, key.to(dev))
+                                  .reshape(cfg.height, cfg.width, 3), cfg.spp)
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"large scene, modular loop forced onto kernel A: "
+        f"{t_dense * 1e3:.1f} ms, {n_rays / t_dense:,.0f} rays/s; launches "
+        f"{launches}")
+    if launches["packet"] or not launches["dense"]:
+        raise AssertionError(f"the forced frame must run kernel A only: "
+                             f"{launches}")
+    if not torch.equal(dense_img, img):
+        mx, share, mean = compare_images(dense_img, img)
+        raise AssertionError(f"packet and dense frames differ: max {mx}, "
+                             f"share {share}, mean {mean}")
+    log("large scene: the packet frame equals the kernel A frame bit for "
+        "bit")
+    return frame_launches
 
 
 def check_mega(got, want, what):
@@ -253,7 +535,8 @@ def train_phase(T, cfg, host_scene):
     fwd, bwd, adam = (ev[k].elapsed_time(ev[k + 1]) for k in range(3))
     log(f"train step split (CUDA events): forward {fwd:.1f} ms, backward "
         f"{bwd:.1f} ms, Adam {adam:.2f} ms; host wall {wall * 1e3:.1f} ms")
-    profile_step(step, params, state, scene, target, T.prng_key(1, dev))
+    profile_step("train step", step, params, state, scene, target,
+                 T.prng_key(1, dev))
     for f, g in zip(param_names(inv), grads.leaves()):
         log(f"  grad {f}: shape {tuple(g.shape)}, max abs "
             f"{float(g.abs().max()) if g.numel() else 0.0:.4e}")
@@ -265,8 +548,8 @@ def train_phase(T, cfg, host_scene):
     return launches
 
 
-def profile_step(step, *args):
-    """One train step under torch.profiler: wall time, the device's busy
+def profile_step(what, step, *args):
+    """One step(*args) under torch.profiler: wall time, the device's busy
     share (kernel time over wall) and the kernels with the most time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -280,7 +563,7 @@ def profile_step(step, *args):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
-    log(f"profiled train step: wall {wall:.1f} ms, device busy "
+    log(f"profiled {what}: wall {wall:.1f} ms, device busy "
         f"{busy:.1f} ms ({100 * busy / wall:.1f} %)")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {ms:9.1f} ms  {count:6d} x  {key[:90]}")
@@ -364,7 +647,7 @@ def main():
         return 1
     import tinypathtracer_tpu_torch as T
     from tinypathtracer_tpu_torch.models.envlight import gradient_sky
-    from tinypathtracer_tpu_torch.ops import dense, mega
+    from tinypathtracer_tpu_torch.ops import dense, mega, packet
     from tinypathtracer_tpu_torch.render.integrator import TraceData
 
     dev = torch.device("cuda")
@@ -375,6 +658,7 @@ def main():
     t0 = time.perf_counter()
     dense._lib()
     mega._lib()
+    packet._lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
     # ---- 2. kernel A vs its plain twin ------------------------------------
@@ -540,6 +824,20 @@ def main():
     for name, scene in (("room", room), ("room+3 lights", with_lights(room))):
         compare_grads(T, scene, small, name)
 
+    # ---- 9-12. the packet traversal and the large scene ---------------
+    large = T.sphere_grid_scene(*LARGE, env_radiance=sky)
+    pk = packet.precompute_packet(
+        TraceData.from_scene(large.to(dev)).tri_verts)
+    err_c = packet_vs_twin(pk, dev)
+    c_ms, c_plain, err, (ops_c, bytes_c) = packet_vs_dense(
+        T, cfg, large, key.to(dev), dev)
+    err_c = max(err_c, err)
+    bounds["packet"] = bound(ops_c, bytes_c)
+    log(f"work of kernel C on the camera chunk: {ops_c / 1e9:.2f} GFLOP, "
+        f"{bytes_c / 1e6:.1f} MB; bound {bounds['packet']}")
+    del pk
+    packet_launches = large_scene_paths(T, cfg, large, key, dev)
+
     kernels = [
         {"name": "dense_closest_hit", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/dense.cu",
@@ -560,6 +858,12 @@ def main():
          "ms": h_ms, "plain_ms": h_plain,
          "bound_ms": bounds["mega_save_hits"][0],
          "bound_by": bounds["mega_save_hits"][1], "library_ms": None},
+        {"name": "packet_closest_hit", "route": "cuda",
+         "source": "tinypathtracer_tpu_torch/csrc/packet.cu",
+         "replaces": "tinypathtracer_tpu/ops/packet.py:158",
+         "launches": packet_launches["packet"], "max_abs_err": err_c,
+         "ms": c_ms, "plain_ms": c_plain, "bound_ms": bounds["packet"][0],
+         "bound_by": bounds["packet"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

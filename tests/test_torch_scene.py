@@ -111,9 +111,10 @@ def test_big_room_pads_to_megakernel_limit():
 def test_config_validation():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RenderConfig(mode="physical")
-    for isect in ("packet", "bvh", "bruteforce"):
+    for isect in ("bvh", "bruteforce"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RenderConfig(intersector=isect)
+    assert RenderConfig(intersector="packet").intersector == "packet"
     with pytest.raises(ValueError):
         RenderConfig(intersector="octree")
     with pytest.raises(ValueError):

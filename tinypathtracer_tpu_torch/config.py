@@ -1,9 +1,10 @@
 """Render configuration (port of `tinypathtracer_tpu/config.py`).
 
-Only the knobs of the ported forward slice exist here. The TPU tuning
-fields of the JAX config (megakernel block width and chunk size, slab
-gates, packet traversal, pixel tiling) and its `TPT_*` environment reads
-have no counterpart: the CUDA kernels take no tuning knobs yet.
+Only the knobs of the ported slices exist here. The TPU tuning fields
+of the JAX config (megakernel block width and chunk size, slab gates,
+the packet traversal's `packet_*` knobs, pixel tiling) and its `TPT_*`
+environment reads have no counterpart: the CUDA kernels take no tuning
+knobs yet.
 """
 
 from __future__ import annotations
@@ -24,8 +25,11 @@ class RenderConfig:
     # "reference" reproduces the CUDA reference estimator with its quirks
     # (render/integrator.py). "physical" is not ported yet.
     mode: str = "reference"
-    # "dense" tests every ray against every triangle (ops/dense.py).
-    # The packet, LBVH and brute-force intersectors are not ported yet.
+    # "dense" tests every ray against every triangle (ops/dense.py) and
+    # resolves to "packet" above 8192 padded faces
+    # (render/renderer.resolve_intersector); "packet" forces the
+    # near-to-far chunk walk (ops/packet.py). The LBVH and brute-force
+    # intersectors are not ported yet.
     intersector: str = "dense"
     # (pixel, sample) lanes are processed in chunks of up to this many
     # rays; the cap bounds live ray-state memory. Images do not depend
@@ -53,11 +57,10 @@ class RenderConfig:
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.intersector not in _INTERSECTORS:
             raise ValueError(f"unknown intersector {self.intersector!r}")
-        if self.intersector != "dense":
+        if self.intersector not in ("dense", "packet"):
             raise NotImplementedError(
                 f"intersector={self.intersector!r} is not ported yet "
-                "(ROADMAP.md, port items 'Packet traversal' and 'LBVH and "
-                "oracles')")
+                "(ROADMAP.md, port item 1.6 'LBVH and oracles')")
 
     @property
     def n_pixels(self) -> int:

@@ -1,4 +1,5 @@
-// Woop hit test shared by the port's kernels (dense.cu, mega.cu).
+// Woop hit test shared by the port's kernels (dense.cu, mega.cu,
+// packet.cu).
 //
 // A triangle is 12 plane floats (W[0, 0:3], c0, W[1, 0:3], c1, W[2, 0:3],
 // c2): o' = W o + c, d' = W d, t = -o'z / d'z, u = o'x + t d'x,

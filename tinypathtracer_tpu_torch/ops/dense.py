@@ -218,19 +218,25 @@ def dense_hit(rays, planes):
 dense_hit.launches = 0
 
 
-def closest_hit_dense(origins, dirs, woop: WoopTris, mask=None):
-    """Closest hit against all triangles. origins/dirs: [N, 3].
-
-    Returns (fid [N] i64, original face id, -1 = miss; t [N] f32,
-    REAL_MAX on miss; uv [N, 2] f32, 0 on miss). mask ([N] bool,
-    optional) is semantics only: lanes with mask=False report miss.
-    """
-    n = origins.shape[0]
-    rays = torch.cat([origins, dirs, origins.new_zeros((n, 2))], dim=1)
-    t, slot, uv = dense_hit(rays.contiguous(), woop.planes)
+def face_hits(t, slot, uv, woop: WoopTris, mask=None):
+    """A closest-hit kernel's (t, slot, uv) as the intersectors report
+    them: (fid [N] i64, original face id, -1 = miss; t [N] f32, REAL_MAX
+    on miss; uv [N, 2] f32, 0 on miss). Slots at or above n_faces and
+    lanes with mask=False become misses."""
     fid = torch.where(slot >= woop.n_faces, -1, slot.long())
     if mask is not None:
         fid = torch.where(mask, fid, -1)
     t = torch.where(fid < 0, REAL_MAX, t)
     uv = torch.where((fid >= 0)[:, None], uv, 0.0)
     return torch.where(fid >= 0, woop.perm[torch.clamp_min(fid, 0)], -1), t, uv
+
+
+def closest_hit_dense(origins, dirs, woop: WoopTris, mask=None):
+    """Closest hit against all triangles. origins/dirs: [N, 3].
+
+    Returns `face_hits`' (fid, t, uv). mask ([N] bool, optional) is
+    semantics only: lanes with mask=False report miss.
+    """
+    n = origins.shape[0]
+    rays = torch.cat([origins, dirs, origins.new_zeros((n, 2))], dim=1)
+    return face_hits(*dense_hit(rays.contiguous(), woop.planes), woop, mask)

@@ -5,8 +5,10 @@ the (pixel, sample) lanes flattened into one ray axis and traced in
 chunks of up to `cfg.rays_per_dispatch` rays. Each lane derives its key
 from (frame key, pixel id, sample id), so images are identical under any
 chunking. A chunk runs the megakernel (ops/mega.py) when the scene
-qualifies and `cfg.megakernel` is set, else the modular bounce loop on
-the dense closest-hit kernel (render/integrator.py).
+qualifies and `cfg.megakernel` is set, else the modular bounce loop
+(render/integrator.py) on the dense closest hit (ops/dense.py) or,
+above 8192 padded faces or on request, the packet traversal
+(ops/packet.py): `resolve_intersector`.
 
 Kernels run where the scene's tensors live: on CUDA the hand-written
 kernels, on the CPU their plain PyTorch twins. `render_pixel_ids` and
@@ -19,13 +21,19 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
+
 import torch
 
 from tinypathtracer_tpu_torch.config import RenderConfig
 from tinypathtracer_tpu_torch.models.scene import FlatScene
 from tinypathtracer_tpu_torch.ops.dense import (WoopTris, closest_hit_dense,
                                                 precompute_woop)
-from tinypathtracer_tpu_torch.ops.mega import mega_available, trace_paths_mega
+from tinypathtracer_tpu_torch.ops.mega import (MEGA_MAX_FACES, mega_available,
+                                               trace_paths_mega)
+from tinypathtracer_tpu_torch.ops.packet import (PacketTris,
+                                                 closest_hit_packet,
+                                                 precompute_packet)
 from tinypathtracer_tpu_torch.ops.sampling import (fold_all, fold_in,
                                                    fold_lanes, lane_uniform)
 from tinypathtracer_tpu_torch.render import film, raygen
@@ -39,18 +47,42 @@ _CAM_TAG = 0x00CA_0CA1
 @dataclasses.dataclass
 class PipelineState:
     """What the per-pixel render needs: the scene, its world-space trace
-    data and the Woop triangles of the dense intersector."""
+    data, the Woop triangles (kernels A and B) and, on the packet route,
+    the packet traversal's chunk tables (whose `woop` is `woop`)."""
 
     scene: FlatScene
     data: TraceData
     woop: WoopTris
+    packet: Optional[PacketTris] = None
+
+
+def resolve_intersector(cfg: RenderConfig, n_faces: int) -> str:
+    """The intersector a config uses on a scene of n_faces faces (the
+    JAX package's policy): "dense" resolves to "packet" when the faces,
+    padded to 128, exceed the megakernel's 8192."""
+    padded = -(-n_faces // 128) * 128
+    if cfg.intersector == "dense" and padded > MEGA_MAX_FACES:
+        return "packet"
+    return cfg.intersector
 
 
 def prepare_state(scene: FlatScene, cfg: RenderConfig) -> PipelineState:
     data = TraceData.from_scene(scene)
     # the intersector's tables carry no gradient (hit ids are detached)
+    tri_verts = data.tri_verts.detach()
+    if resolve_intersector(cfg, tri_verts.shape[0]) == "packet":
+        pk = precompute_packet(tri_verts)
+        return PipelineState(scene=scene, data=data, woop=pk.woop, packet=pk)
     return PipelineState(scene=scene, data=data,
-                         woop=precompute_woop(data.tri_verts.detach()))
+                         woop=precompute_woop(tri_verts))
+
+
+def hit_fn(state: PipelineState):
+    """The modular loop's closest_hit: the packet traversal where the
+    state holds its tables, else the dense closest hit."""
+    if state.packet is not None:
+        return functools.partial(closest_hit_packet, pk=state.packet)
+    return functools.partial(closest_hit_dense, woop=state.woop)
 
 
 def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key):
@@ -75,8 +107,9 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key):
     y * width + x). Returns [P, 3] float32."""
     spp = cfg.spp
     data = state.data
-    use_mega = cfg.megakernel and mega_available(data, cfg, state.woop)
-    hit = functools.partial(closest_hit_dense, woop=state.woop)
+    use_mega = (cfg.megakernel and state.packet is None
+                and mega_available(data, cfg, state.woop))
+    hit = hit_fn(state)
     n = pix.shape[0]
     # all spp of a pixel stay in one chunk (the sample sum is in-chunk)
     px_chunk = max(1, min(n, cfg.rays_per_dispatch // spp))
