@@ -72,19 +72,24 @@ def large():
 
 @pytest.mark.parametrize("grid", [ROOM, CHUNKED, LARGE])
 def test_chunk_tables_match_jax(grid):
-    """Chunk boxes, validity, slot order and chunk size are JAX
-    precompute_packet's exactly; the margins are the port's own."""
+    """Chunk boxes (without the margin), validity, slot order and chunk
+    size are JAX precompute_packet's exactly; the margin, the port's own,
+    strictly widens every valid box and leaves the invalid ones."""
     tv = _tri_verts(grid)
     want = jax.jit(jpacket.precompute_packet)(jnp.asarray(tv))
-    got = packet.precompute_packet(torch.from_numpy(tv))
-    c = got.n_chunks
+    bare = packet.precompute_packet(torch.from_numpy(tv), margin=0.0)
+    c = bare.n_chunks
     boxes = np.asarray(want.boxes)
-    assert got.tc == want.sub * jpacket.CHUNK and c == want.n_chunks
-    assert np.array_equal(boxes[:6, :c].T, got.boxes[:, :6].numpy())
-    assert np.array_equal(boxes[6, :c], got.boxes[:, 6].numpy())
-    assert np.array_equal(np.asarray(want.woop.perm), got.woop.perm.numpy())
-    margin = got.boxes[:, 7]
-    assert ((margin > 0) == (got.boxes[:, 6] > 0)).all()
+    assert bare.tc == want.sub * jpacket.CHUNK and c == want.n_chunks
+    assert np.array_equal(boxes[:6, :c].T, bare.boxes[:, :6].numpy())
+    assert np.array_equal(boxes[6, :c], bare.boxes[:, 6].numpy())
+    assert np.array_equal(np.asarray(want.woop.perm), bare.woop.perm.numpy())
+    got = packet.precompute_packet(torch.from_numpy(tv)).boxes
+    valid = got[:, 6] > 0
+    assert torch.equal(got[:, 6:], bare.boxes[:, 6:])
+    assert (got[valid, :3] < bare.boxes[valid, :3]).all()
+    assert (got[valid, 3:6] > bare.boxes[valid, 3:6]).all()
+    assert torch.equal(got[~valid], bare.boxes[~valid])
 
 
 @pytest.mark.parametrize("impl", ["interpret", "xla"])
@@ -187,8 +192,7 @@ def test_margin_keeps_hits_on_box_faces(large):
         -4.9, 4.9, tuple(targets.shape)).astype(np.float32))
     d = torch.nn.functional.normalize(targets - o, dim=1)
     got = packet.closest_hit_packet(o, d, pk)
-    unwidened = dataclasses.replace(pk, boxes=pk.boxes.clone())
-    unwidened.boxes[:, 7] = 0.0
+    unwidened = packet.precompute_packet(torch.from_numpy(tv), margin=0.0)
     lost = packet.closest_hit_packet(o, d, unwidened)[0] != got[0]
     check = lost | (torch.arange(o.shape[0]) < 256)
     want = dense.closest_hit_dense(o[check], d[check], pk.woop)

@@ -5,11 +5,11 @@
 // tinypathtracer_tpu_torch/ops/packet.py `_packet_torch`.
 //
 // The triangles are kernel A's Woop planes in morton slot order, cut into
-// C chunks of tc consecutive slots, each with an axis-aligned box widened
-// by its margin. A ray visits the chunks whose boxes it enters in
-// ascending (entry distance, chunk id) and stops when the next entry is
-// greater than its best t; inside a chunk it takes a hit on t < best or on
-// t == best with a lower slot. The result is kernel A's (t, slot, u, v)
+// C chunks of tc consecutive slots, each with an axis-aligned box (widened
+// by its margin on the host, ops/packet.precompute_packet). A ray visits
+// the chunks whose boxes it enters in ascending (entry distance, chunk
+// id) and stops when the next entry is greater than its best t; inside a
+// chunk it takes a hit on t < best or on t == best with a lower slot. The result is kernel A's (t, slot, u, v)
 // bit for bit: the same arithmetic (hit.cuh) and the same tie rule, the
 // lowest slot among equal t.
 //
@@ -23,7 +23,7 @@
 // truncated distance. Dead lanes (alive flag 0) traverse nothing.
 //
 // What bounds it on the H100: per visited chunk tc pair tests of ~39
-// fp32 operations (as kernel A) plus one rescan of C boxes (~18 each), so
+// fp32 operations (as kernel A) plus one rescan of C boxes (~12 each), so
 // it is compute-bound like kernel A, on the chunks the rays visit instead
 // of all F. Threads of a warp visit different chunks, so the plane loads
 // of a visit are no longer broadcasts (the planes, 48 B a slot, stay in
@@ -48,21 +48,20 @@ __device__ __forceinline__ float reciprocal(float d) {
 }
 
 // Slab test of a ray against chunk box b (bmin xyz, bmax xyz, validity,
-// margin), widened by the margin. Returns whether the ray enters the box
-// at or beyond DELTA; entry = max(near, DELTA). fminf / fmaxf ignore NaN.
+// 0). Returns whether the ray enters the box at or beyond DELTA; entry =
+// max(near, DELTA). fminf / fmaxf ignore NaN.
 __device__ __forceinline__ bool enter_box(const float* __restrict__ b,
                                           const SlabRay& r, float& entry) {
   const float4* p = reinterpret_cast<const float4*>(b);
   const float4 lo = __ldg(p), hi = __ldg(p + 1);
-  // lo = (bmin x, bmin y, bmin z, bmax x), hi = (bmax y, bmax z, valid, m)
+  // lo = (bmin x, bmin y, bmin z, bmax x), hi = (bmax y, bmax z, valid, 0)
   if (hi.z == 0.f) return false;
-  const float m = hi.w;
-  const float tx0 = ((lo.x - m) - r.ox) * r.ivx;
-  const float ty0 = ((lo.y - m) - r.oy) * r.ivy;
-  const float tz0 = ((lo.z - m) - r.oz) * r.ivz;
-  const float tx1 = ((lo.w + m) - r.ox) * r.ivx;
-  const float ty1 = ((hi.x + m) - r.oy) * r.ivy;
-  const float tz1 = ((hi.y + m) - r.oz) * r.ivz;
+  const float tx0 = (lo.x - r.ox) * r.ivx;
+  const float ty0 = (lo.y - r.oy) * r.ivy;
+  const float tz0 = (lo.z - r.oz) * r.ivz;
+  const float tx1 = (lo.w - r.ox) * r.ivx;
+  const float ty1 = (hi.x - r.oy) * r.ivy;
+  const float tz1 = (hi.y - r.oz) * r.ivz;
   const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                            fminf(tz0, tz1));
   const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),

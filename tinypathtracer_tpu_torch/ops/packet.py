@@ -15,10 +15,10 @@ ray visits, not with F. Lanes that are not alive traverse nothing.
 
 The slab test is kept conservative: a zero direction component gets the
 huge finite reciprocal REAL_MAX (a parallel ray never culls a box it lies
-in), the boxes are widened by a per-chunk margin (1e-5 of their extent
-from the origin, as the JAX package pads its host-built LBVH boxes) so
-that the slab test's rounding can never cull a hit the Woop test accepts,
-and the entry distance is max(near, DELTA).
+in), `precompute_packet` widens the boxes by a per-chunk margin (1e-5
+of their extent from the origin, as the JAX package pads its host-built
+LBVH boxes) so that the slab test's rounding can never cull a hit the
+Woop test accepts, and the entry distance is max(near, DELTA).
 
 The CUDA kernel (`csrc/packet.cu`, kernel C) replaces the TPU kernel
 `_make_packet_kernel`. `_packet_torch` is its plain PyTorch twin: same
@@ -61,8 +61,9 @@ class PacketTris:
 
     woop: the morton-ordered Woop planes (kernel A's [Fp, 12] table and
     the slot -> face permutation). boxes: [C, 8] f32 per chunk of tc
-    slots: bmin xyz, bmax xyz over its real faces (padding faces give an
-    inverted box), validity (1, or 0 for an all-padding chunk), margin.
+    slots: bmin xyz, bmax xyz over its real faces, widened by the margin
+    (padding faces give an inverted box), validity (1, or 0 for an
+    all-padding chunk), 0 (the rows stay 32 B for float4 loads).
     """
 
     woop: WoopTris
@@ -74,9 +75,12 @@ class PacketTris:
         return self.boxes.shape[0]
 
 
-def precompute_packet(tri_verts, tc: int = PACKET_TC) -> PacketTris:
-    """[F, 3, 3] world-space triangles -> PacketTris. The morton order
-    and the planes are `precompute_woop`'s, shared with kernel A."""
+def precompute_packet(tri_verts, tc: int = PACKET_TC,
+                      margin: float = BOX_MARGIN) -> PacketTris:
+    """[F, 3, 3] world-space triangles -> PacketTris, each valid box
+    widened by `margin` times max(1, |bmin| + |bmax|) (0: the JAX
+    package's boxes). The morton order and the planes are
+    `precompute_woop`'s, shared with kernel A."""
     woop = precompute_woop(tri_verts)
     fp = woop.n_padded
     while fp % tc:
@@ -91,9 +95,9 @@ def precompute_packet(tri_verts, tc: int = PACKET_TC) -> PacketTris:
     ck_max = fb_max.reshape(c, tc, 3).amax(dim=1)
     ck_valid = torch.arange(c, device=tv.device) * tc < woop.n_faces
     extent = (ck_min.abs() + ck_max.abs()).amax(dim=1).clamp_min(1.0)
-    margin = torch.where(ck_valid, BOX_MARGIN * extent, 0.0)
-    boxes = torch.cat([ck_min, ck_max, ck_valid.float()[:, None],
-                       margin[:, None]], dim=1)
+    pad = torch.where(ck_valid, margin * extent, 0.0)[:, None]
+    boxes = torch.cat([ck_min - pad, ck_max + pad, ck_valid.float()[:, None],
+                       torch.zeros_like(pad)], dim=1)
     return PacketTris(woop=woop, boxes=boxes.contiguous(), tc=tc)
 
 
@@ -107,11 +111,10 @@ def _reciprocals(d):
 
 def _slab(rays, boxes):
     """(entry [N, C], entered [N, C] bool) of rays [N, 8] against the
-    boxes widened by their margins. NaN-ignoring min and max, as CUDA's
-    fminf / fmaxf."""
+    boxes. NaN-ignoring min and max, as CUDA's fminf / fmaxf."""
     o, iv = rays[:, None, 0:3], _reciprocals(rays[:, 3:6])[:, None]
-    t0 = ((boxes[:, 0:3] - boxes[:, 7:8]) - o) * iv      # [N, C, 3]
-    t1 = ((boxes[:, 3:6] + boxes[:, 7:8]) - o) * iv
+    t0 = (boxes[:, 0:3] - o) * iv                         # [N, C, 3]
+    t1 = (boxes[:, 3:6] - o) * iv
     lo, hi = torch.fmin(t0, t1), torch.fmax(t0, t1)
     near = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]), lo[..., 2])
     far = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
