@@ -6,8 +6,8 @@ one NVIDIA GPU.
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits
 non-zero):
-  1. the card, the versions, and the build of the three CUDA kernels
-     from the sources in this checkout;
+  1. the card, the versions, and the build of the six CUDA kernels
+     (five sources, one nvcc each, all at once) from this checkout;
   2. kernel A (dense closest hit) against its plain PyTorch twin on the
      card: 65,536 rays from inside the 1,804-face room plus a ragged
      batch; (slot, t, u, v) must be exactly equal;
@@ -54,12 +54,34 @@ non-zero):
      memory), then one profiled run of each; each must launch kernel C
      and neither kernel A nor B;
  12. the same frame through the modular loop on kernel A, forced through
-     the pipeline state: bit-equal to the packet frame.
+     the pipeline state: bit-equal to the packet frame;
+ 13. kernels D (tensor-core transform, both precisions) and E (staged
+     triangles) of the kernel lab against their twins and kernel A:
+     65,536 rays, a ragged batch and lab4's full shape (2**20 rays x
+     1,948 random triangles, 2,048 slots); E exact, D (each precision)
+     held to its twin's face ids and t and to kernel A's face ids by
+     LAB4_LIMITS, "highest" on >= 99.9 % of kernel A's face ids; then
+     lab4's main, the tc sweep
+     beside kernel A, launch counters zeroed before and read after;
+ 14. kernel F (the stripped packet kernel), every variant against its
+     twin on 2**18 pixel8 rays of the big room, exactly; then
+     lab5_diag's main, counters zeroed before and read after;
+ 15. the lab entry points through their public mains: kernel_lab, lab5
+     (room, g2, g4 x camera, pixel8, random x packet, dense, bvh at 2**18
+     rays: the dense/packet crossover), lab6 and profile_stages;
+ 16. the Renderer's oracle routes on the room at 64x64 @4 spp d8:
+     intersector="bvh" (device and host tree) and "bruteforce"; their
+     hits equal the brute force's, their frames each other's and the
+     dense frame's within 1e-5 but for at most ORACLE_EDGE_PIXELS tied
+     edge pixels (counted), kernels A
+     and B launch 0 times; the stack guard refuses a tree one level too
+     deep for the stack.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
-and its bytes (inputs read once, outputs written once) over 3.35 TB/s.
-The last lines are the kernels JSON, the card's name and power limit,
-and the result JSON.
+and its bytes (inputs read once, outputs written once) over 3.35 TB/s;
+kernel D's transform counts against the TF32 tensor-core peak. The last
+lines are the kernels JSON, the card's name and power limit, and the
+result JSON.
 """
 
 import dataclasses
@@ -83,6 +105,7 @@ LR = 1e-2
 # H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor
 # cores, and HBM3
 FP32_PEAK = 67e12
+TF32_PEAK = 495e12           # dense, on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 # fp32 operations of the hit test (csrc/hit.cuh), a fused multiply-add
 # counted as 2 and the IEEE divide as 1 (the least it can cost; the
@@ -98,6 +121,26 @@ OPS_DIRECTION = 21
 # reciprocals
 OPS_SLAB = 12
 OPS_RECIPROCALS = 3
+# kernel D: the transform's share of the pair test (o' 18 + d' 15) runs
+# on the tensor cores, 3 TF32 passes for "highest"; the rest (t, u, v,
+# u + v: 6) on the CUDA cores
+OPS_TRANSFORM = 33
+LAB4_F = 1948                # lab4's triangles (2,048 slots)
+# kernel D's limits per precision: the least share of face ids equal to
+# its twin's, the largest |dt| on those lanes (t is 1-100 here), the least
+# share of face ids equal to kernel A's. Set from the H100 readings
+# (highest: 0.999995, 2.44e-3, 0.999969; default, one TF32 pass:
+# 0.999036, 2.71e-3, 0.924783), with margin.
+LAB4_LIMITS = {"highest": (0.999, 1e-2, 0.999),
+               "default": (0.995, 1e-2, 0.9)}
+LAB4_BATCHES = (65536, 1037, 1 << 20)
+LAB_RAYS = 1 << 18
+ORACLE = dict(width=64, height=64, spp=4, max_depth=8)
+# pixels of the oracle frame allowed beyond 1e-5 of the dense frame: the
+# brute force and kernel A test a ray against a triangle by different
+# arithmetic, and take different faces where two are tied at an edge
+# (3 pixels on the H100 at this key; twice that allowed)
+ORACLE_EDGE_PIXELS = 6
 
 
 def log(*args):
@@ -205,6 +248,12 @@ def check_equal(got, want, what, names):
            in zip(got, want, names) if not torch.equal(g, w)]
     if bad:
         raise AssertionError(f"{what}: {', '.join(bad)}")
+
+
+def max_abs_diff(got, want):
+    """max |got - want| over a kernel's outputs, in float64."""
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(got, want))
 
 
 def random_rays(n, gen, alive=None):
@@ -331,20 +380,28 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
 
 def zero_launches():
     from tinypathtracer_tpu_torch.ops import dense, mega, packet
+    from tinypathtracer_tpu_torch.tools import lab4, lab5_diag
 
     dense.dense_hit.launches = 0
     mega.mega_trace.launches = 0
     mega.mega_trace.launches_save_hits = 0
     packet.packet_hit.launches = 0
+    lab4.mxu_closest_hit.launches = 0
+    lab4.vpu_rol_closest_hit.launches = 0
+    lab5_diag.diag_run.launches = 0
 
 
 def read_launches():
     from tinypathtracer_tpu_torch.ops import dense, mega, packet
+    from tinypathtracer_tpu_torch.tools import lab4, lab5_diag
 
     return {"packet": packet.packet_hit.launches,
             "dense": dense.dense_hit.launches,
             "mega": mega.mega_trace.launches,
-            "mega_save_hits": mega.mega_trace.launches_save_hits}
+            "mega_save_hits": mega.mega_trace.launches_save_hits,
+            "mxu": lab4.mxu_closest_hit.launches,
+            "vpu_rol": lab4.vpu_rol_closest_hit.launches,
+            "diag": lab5_diag.diag_run.launches}
 
 
 def check_packet_route(launches, what):
@@ -646,6 +703,205 @@ def compare_images(a, b):
             float(diff.mean()))
 
 
+def lab4_work(n, fp, precision):
+    """(ms of the least time, bound_by) of the closest hit of n rays x fp
+    slots: the transform on the tensor cores (3 TF32 passes for
+    "highest", 1 for "default"; None: fp32 on the CUDA cores, kernel E),
+    the rest on the CUDA cores; rays8 and the planes read once, (t, fid)
+    written."""
+    pairs = n * fp
+    nbytes = n * (32 + 8) + fp * 48
+    if precision is None:
+        return bound(pairs * (OPS_ORIGIN + OPS_DIRECTION), nbytes)
+    passes = 3 if precision == "highest" else 1
+    t_mma = pairs * OPS_TRANSFORM * passes / TF32_PEAK * 1e3
+    t_fp32 = pairs * (OPS_ORIGIN + OPS_DIRECTION - OPS_TRANSFORM) \
+        / FP32_PEAK * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    best = max(t_mma, t_fp32, t_bytes)
+    return best, "bytes" if best == t_bytes else "operations"
+
+
+def lab4_phase(dev):
+    """Phase 13: kernels D and E against their twins and kernel A.
+    Returns {name: (ms, plain ms, max |err|, bound)} at lab4's full
+    shape; D's error is max |dt| over the lanes where it and its twin
+    take the same face."""
+    from tinypathtracer_tpu_torch.ops import dense
+    from tinypathtracer_tpu_torch.tools import lab4
+
+    out = {}
+    err = {"mxu": 0.0, "vpu_rol": 0.0}
+    for n in LAB4_BATCHES:
+        full = n == LAB4_BATCHES[-1]
+        woop, rays, rays8 = lab4.test_data(n, LAB4_F, dev, seed=n)
+        planes4, planesT = lab4.make_planes4(woop), lab4.make_planesT(woop)
+        a_ms, (ta, sa, _) = cuda_ms(lambda: dense.dense_hit(rays, woop.planes),
+                                    5)
+        e_ms, got = cuda_ms(lambda: lab4.vpu_rol_closest_hit(rays8, planesT),
+                            5)
+        e_plain, want = cuda_ms(lambda: lab4._vpu_rol_torch(rays8, planesT),
+                                1, warm=False)
+        check_equal(got, want, f"kernel E vs twin, {n} rays", ("t", "fid"))
+        err["vpu_rol"] = max(err["vpu_rol"], max_abs_diff(got, want))
+        check_equal(got, (ta, sa), f"kernel E vs kernel A, {n} rays",
+                    ("t", "slot"))
+        hit = sa >= 0
+        line = (f"kernels D, E vs twins and kernel A, {n} rays x "
+                f"{woop.n_padded} slots: E exact (hit share "
+                f"{float(hit.float().mean()):.4f})")
+        for prec in ("highest", "default"):
+            d_ms, (td, fd) = cuda_ms(lambda: lab4.mxu_closest_hit(
+                rays8, planes4, precision=prec), 5)
+            d_plain, (tw, fw) = cuda_ms(lambda: lab4._mxu_torch(
+                rays8, planes4, precision=prec), 1, warm=False)
+            same = (fd == fw) & (fw >= 0)
+            twin_share = float((fd == fw).float().mean())
+            twin_dt = float((td - tw)[same].abs().max())
+            a_share, a_dt = lab4.agreement(td, fd, ta, sa)
+            line += (f"; D {prec}: face ids = twin's on {twin_share:.6f}, "
+                     f"max |dt| {twin_dt:.3e}, = kernel A's on {a_share:.6f},"
+                     f" max |dt| on A's hits {a_dt:.3e}")
+            min_twin, max_dt, min_a = LAB4_LIMITS[prec]
+            if not (twin_share >= min_twin and twin_dt <= max_dt
+                    and a_share >= min_a):
+                raise AssertionError(
+                    f"kernel D {prec}, {n} rays: face ids = twin's on "
+                    f"{twin_share} (limit {min_twin}), max |dt| {twin_dt} "
+                    f"(limit {max_dt}), = kernel A's on {a_share} (limit "
+                    f"{min_a})")
+            if prec == "highest":
+                err["mxu"] = max(err["mxu"], twin_dt)
+                if full:
+                    out["mxu"] = (d_ms, d_plain, err["mxu"],
+                                  lab4_work(n, woop.n_padded, prec))
+                    line += f" ({d_ms:.2f} ms, twin {d_plain:.1f} ms)"
+            elif full:
+                line += f" ({d_ms:.2f} ms)"
+        if full:
+            out["vpu_rol"] = (e_ms, e_plain, err["vpu_rol"],
+                              lab4_work(n, woop.n_padded, None))
+            line += (f"; E {e_ms:.2f} ms (twin {e_plain:.1f} ms), kernel A "
+                     f"{a_ms:.2f} ms")
+        log(line)
+    return out
+
+
+def diag_phase(T, dev):
+    """Phase 14: kernel F, every variant against its twin on 2**18
+    pixel8 rays of the big room. Returns (walk ms, walk twin ms, max
+    |err|, bound of the walk from its visits)."""
+    from tinypathtracer_tpu_torch.models.envlight import gradient_sky
+    from tinypathtracer_tpu_torch.tools import lab5, lab5_diag as diag
+
+    scene = T.sphere_grid_scene(*BIG_ROOM, env_radiance=gradient_sky(16, 32),
+                                device=dev)
+    o, d, tv = lab5.make_rays(scene, LAB_RAYS, "pixel8")
+    n = o.shape[0]
+    rays = torch.cat([o, d, torch.ones((n, 1), device=dev),
+                      torch.zeros((n, 1), device=dev)], dim=1).contiguous()
+    planes, boxes = diag.diag_tables(tv)
+    res = {}
+    err = 0.0
+    for v in diag.VARIANTS:
+        ms, got = cuda_ms(lambda: diag.diag_run(v, rays, planes, boxes), 5)
+        plain, want = cuda_ms(lambda: diag._diag_torch(v, rays, planes, boxes),
+                              1, warm=False)
+        check_equal([got], [want], f"kernel F {v} vs twin", ("out",))
+        err = max(err, max_abs_diff([got], [want]))
+        res[v] = (ms, plain)
+        log(f"kernel F {v:8s} vs twin, {n} pixel8 rays, "
+            f"{planes.shape[0] // diag.ROWS} chunks ({boxes.shape[1]} boxes): "
+            f"exact; {ms:.3f} ms, {ms * 1e6 / (n // diag.PACKET):.1f} ns per "
+            f"packet (twin {plain:.1f} ms)")
+    r = rays.view(-1, diag.PACKET, 8)
+    _, visits = diag.walk(r, planes, diag._keys(r, boxes)[2])
+    c, cp = planes.shape[0] // diag.ROWS, boxes.shape[1]
+    ops = (int(visits.sum()) * diag.PACKET * diag.CHUNK
+           * (OPS_ORIGIN + OPS_DIRECTION)
+           + n * (cp * OPS_SLAB + OPS_RECIPROCALS))
+    nbytes = n * (32 + 4) + c * diag.ROWS * diag.CHUNK * 4 + cp * 32
+    log(f"kernel F walk: {float(visits.float().mean()):.3f} chunk visits per "
+        f"packet (max {int(visits.max())}); work {ops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; bound {bound(ops, nbytes)}")
+    return res["walk"][0], res["walk"][1], err, bound(ops, nbytes)
+
+
+def run_main(what, fn, *args):
+    """One lab's public main on the card, launch counters zeroed before
+    and read after. Returns the launches."""
+    zero_launches()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"{what}: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+def oracle_phase(T, host_room, dev):
+    """Phase 16: the Renderer's "bvh" (device and host tree) and
+    "bruteforce" routes on the room."""
+    from tinypathtracer_tpu_torch.ops import lbvh
+    from tinypathtracer_tpu_torch.ops.intersect import closest_hit_bruteforce
+    from tinypathtracer_tpu_torch.ops.traverse import closest_hit_bvh
+    from tinypathtracer_tpu_torch.render.renderer import (host_build_bvh,
+                                                          lane_rays,
+                                                          prepare_state)
+
+    key = T.prng_key(3)
+    dense_img = T.Renderer(T.RenderConfig(**ORACLE)).render(host_room, key)
+    frames = {}
+    zero_launches()
+    for name, kw in (("bvh device", dict(intersector="bvh")),
+                     ("bvh host", dict(intersector="bvh", bvh_source="host")),
+                     ("bruteforce", dict(intersector="bruteforce"))):
+        r = T.Renderer(T.RenderConfig(**ORACLE, **kw))
+        t0 = time.perf_counter()
+        frames[name] = r.render(host_room, key)
+        torch.cuda.synchronize()
+        log(f"oracle route {name}: {ORACLE}, "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"image mean {float(frames[name].mean()):.5f}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the oracle routes launched kernels: {launches}")
+    for name in ("bvh device", "bvh host"):
+        if not torch.equal(frames[name], frames["bruteforce"]):
+            raise AssertionError(f"{name} frame != bruteforce frame")
+    mx, share, mean = compare_images(frames["bruteforce"], dense_img)
+    edge = round(share * ORACLE["width"] * ORACLE["height"])
+    log(f"oracle frames: bvh (both trees) == bruteforce bit for bit; against "
+        f"the dense frame max abs diff {mx:.3e}, {edge} pixels beyond 1e-5 "
+        f"(tied edge lanes, limit {ORACLE_EDGE_PIXELS}), mean abs diff "
+        f"{mean:.3e}")
+    if edge > ORACLE_EDGE_PIXELS:
+        raise AssertionError(f"oracle and dense frames differ beyond 1e-5 on "
+                             f"{edge} pixels")
+
+    scene = host_room.to(dev)
+    cfg = T.RenderConfig(**ORACLE, intersector="bvh")
+    state = prepare_state(scene, cfg)
+    o, d, _ = lane_rays(scene, cfg, torch.arange(cfg.n_pixels, device=dev),
+                        key.to(dev))
+    want = closest_hit_bruteforce(o, d, state.data.tri_verts)
+    for name, tree in (("device", state.bvh),
+                       ("host", host_build_bvh(host_room).to(dev))):
+        got = closest_hit_bvh(o, d, tree)
+        check_equal(got, want, f"closest_hit_bvh ({name} tree) vs bruteforce",
+                    ("fid", "t", "uv"))
+    depth = lbvh.tree_depth(state.bvh)
+    log(f"closest_hit_bvh == bruteforce on {o.shape[0]} camera rays, both "
+        f"trees; the room's LBVH has depth {depth}")
+    try:
+        T.Renderer(T.RenderConfig(**ORACLE, intersector="bvh",
+                                  stack_depth=depth)).render(host_room, key)
+    except ValueError as e:
+        log(f"stack guard, stack_depth={depth}: refused ({e})")
+    else:
+        raise AssertionError("the stack guard let an overflowing tree render")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -661,10 +917,14 @@ def main():
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+    from tinypathtracer_tpu_torch.tools import lab4, lab5_diag
+    from tinypathtracer_tpu_torch.utils import cuda_build
+
     t0 = time.perf_counter()
-    dense._lib()
-    mega._lib()
-    packet._lib()
+    cuda_build.build_libraries(["dense", "mega", "packet", "lab4",
+                                "lab5_diag"])
+    for mod in (dense, mega, packet, lab4, lab5_diag):
+        mod._lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
     # ---- 2. kernel A vs its plain twin ------------------------------------
@@ -845,6 +1105,28 @@ def main():
     del pk
     packet_launches = large_scene_paths(T, cfg, large, key, dev)
 
+    # ---- 13-15. the kernel lab -------------------------------------------
+    from tinypathtracer_tpu_torch.tools import (kernel_lab, lab5, lab6,
+                                                profile_stages)
+
+    lab = lab4_phase(dev)
+    lab4_launches = run_main("lab4 main", lab4.main, [])
+    lab["diag"] = diag_phase(T, dev)
+    diag_launches = run_main("lab5_diag main", lab5_diag.main, [])
+    if not (lab4_launches["mxu"] and lab4_launches["vpu_rol"]
+            and diag_launches["diag"]):
+        raise AssertionError(f"a lab kernel never ran in its lab's main: "
+                             f"{lab4_launches}, {diag_launches}")
+    run_main("kernel_lab main", kernel_lab.main, [])
+    run_main("lab5 main", lab5.main, ["--scenes", "room,g2,g4", "--impls",
+                                      "packet,dense,bvh",
+                                      "--n", str(LAB_RAYS)])
+    run_main("lab6 main", lab6.main, [])
+    run_main("profile_stages main", profile_stages.main, [])
+
+    # ---- 16. the oracle routes ---------------------------------------------
+    oracle_phase(T, host_room, dev)
+
     kernels = [
         {"name": "dense_closest_hit", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/dense.cu",
@@ -872,6 +1154,21 @@ def main():
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": bounds["packet"][0],
          "bound_by": bounds["packet"][1], "library_ms": None},
     ]
+    for name, src, line, launched in (
+            ("mxu", "lab4.cu", "tools/lab4.py:60", lab4_launches["mxu"]),
+            ("vpu_rol", "lab4.cu", "tools/lab4.py:140",
+             lab4_launches["vpu_rol"]),
+            ("diag", "lab5_diag.cu", "tools/lab5_diag.py:58",
+             diag_launches["diag"])):
+        ms, plain, err, (b_ms, b_by) = lab[name]
+        kernels.append({
+            "name": {"mxu": "mxu_closest_hit",
+                     "vpu_rol": "vpu_rol_closest_hit",
+                     "diag": "lab5_diag_walk"}[name],
+            "route": "cuda", "source": f"tinypathtracer_tpu_torch/csrc/{src}",
+            "replaces": f"tinypathtracer_tpu/{line}", "launches": launched,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

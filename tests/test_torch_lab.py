@@ -1,0 +1,266 @@
+"""The kernel lab: the plain twins of kernels D, E (tools/lab4.py) and F
+(tools/lab5_diag.py) against the JAX package's Pallas kernels run in
+interpret mode on the same inputs, and every lab `main` on the CPU at a
+tiny size.
+
+The CUDA kernels run on the card only; chip_smoke.py holds each to its
+twin there. Kernel E's twin equals the JAX kernel exactly (the hit
+test's multiply-adds are fused where XLA:CPU fuses the JAX kernel); so
+does kernel F's, on every variant but `epilogue`, whose JAX kernel reads
+scratch nothing wrote (NaN in interpret mode; the port fills it with
+REAL_MAX). Kernel D's twin emulates the tensor cores' TF32 operands,
+while the JAX kernel in interpret mode computes its dot products in
+fp32 whatever `precision` says: the 3xTF32 ("highest") twin is held to
+it by the share of equal face ids and a relative tolerance on t.
+"""
+
+import json
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from tinypathtracer_tpu.ops import packet as jpacket
+from tinypathtracer_tpu.render.integrator import TraceData as JaxTraceData
+from tinypathtracer_tpu.tools import lab4 as jlab4
+from tinypathtracer_tpu.tools import lab5 as jlab5
+from tinypathtracer_tpu.tools import lab5_diag as jdiag
+from tinypathtracer_tpu_torch.ops import dense
+from tinypathtracer_tpu_torch.tools import (kernel_lab, lab4, lab5, lab5_diag,
+                                            lab6, profile_stages)
+
+from _torch_scenes import jax_scene, port_scene
+
+torch.set_num_threads(2)
+
+# sphere_grid_scene(2, 10, 16): 2,316 faces, 19 chunks of 128 (walkfix
+# reads chunks 0-15)
+DIAG_GRID = (2, 10, 16)
+
+
+def _lab4_inputs(n=256, f=200, seed=0):
+    return lab4.test_data(n, f, torch.device("cpu"), seed)
+
+
+def _pallas_lab4(kernel, rays8, planes, n, tc=128):
+    return pl.pallas_call(
+        kernel, grid=(n // 128,),
+        in_specs=[pl.BlockSpec((8, 128), lambda i: (0, i)),
+                  pl.BlockSpec(tuple(planes.shape), lambda i: (0, 0))],
+        out_specs=(pl.BlockSpec((1, 128), lambda i: (0, i)),
+                   pl.BlockSpec((1, 128), lambda i: (0, i))),
+        out_shape=(jax.ShapeDtypeStruct((1, n), jnp.float32),
+                   jax.ShapeDtypeStruct((1, n), jnp.int32)),
+        interpret=True)(jnp.asarray(rays8.numpy()), jnp.asarray(planes.numpy()))
+
+
+def test_planes_layouts_match_jax():
+    """make_planes4 / make_planesT give the JAX tools' tables of the same
+    triangles."""
+    tv = np.random.default_rng(0).random((200, 3, 3)).astype(np.float32)
+    from tinypathtracer_tpu.ops.dense import precompute_woop as jwoop_of
+    jw = jax.jit(jwoop_of)(jnp.asarray(tv))
+    pw = dense.precompute_woop(torch.from_numpy(tv))
+    assert np.array_equal(np.asarray(jlab4.make_planes4(jw)),
+                          lab4.make_planes4(pw).numpy())
+    assert np.array_equal(np.asarray(jlab4.make_planesT(jw)),
+                          lab4.make_planesT(pw).numpy())
+
+
+def test_kernel_e_twin_equals_jax_and_kernel_a():
+    """Kernel E's twin equals lab4._vpu_rol_kernel in interpret mode and
+    kernel A's twin exactly (t and slot), at 256 rays x 200 triangles."""
+    woop, rays, rays8 = _lab4_inputs()
+    planesT = lab4.make_planesT(woop)
+    fp = woop.n_padded
+    want_t, want_f = _pallas_lab4(jlab4._vpu_rol_kernel(fp, 128), rays8,
+                                  planesT, 256)
+    t, fid = lab4.vpu_rol_closest_hit(rays8, planesT, tc=128)
+    assert np.array_equal(t.numpy(), np.asarray(want_t)[0])
+    assert np.array_equal(fid.numpy(), np.asarray(want_f)[0])
+    ta, sa, _ = dense.dense_hit(rays, woop.planes)
+    assert torch.equal(t, ta) and torch.equal(fid, sa)
+    assert 0.3 < float((fid >= 0).float().mean()) < 1.0
+    # tc tiles the work only
+    assert torch.equal(lab4.vpu_rol_closest_hit(rays8, planesT, tc=256)[1],
+                       fid)
+
+
+def test_kernel_d_twin_matches_jax():
+    """Kernel D's 3xTF32 twin against lab4._mxu_hit_kernel in interpret
+    mode (fp32 dot products): face ids equal on >= 99 % of lanes, and t
+    within 2e-4 where they do: the transform cancels terms of the scene's
+    size (100) down to o'z, and the split operands keep ~22 bits of them
+    (max |dt| measured 3.3e-5). The one-pass TF32 instance keeps most face
+    ids."""
+    woop, _, rays8 = _lab4_inputs()
+    planes4 = lab4.make_planes4(woop)
+    want_t, want_f = _pallas_lab4(
+        jlab4._mxu_hit_kernel(woop.n_padded, 128, jax.lax.Precision.HIGHEST),
+        rays8, planes4, 256)
+    want_t, want_f = np.asarray(want_t)[0], np.asarray(want_f)[0]
+    t, fid = lab4.mxu_closest_hit(rays8, planes4, tc=128, precision="highest")
+    t, fid = t.numpy(), fid.numpy()
+    same = fid == want_f
+    assert same.mean() >= 0.99
+    hit = same & (want_f >= 0)
+    np.testing.assert_allclose(t[hit], want_t[hit], rtol=0, atol=2e-4)
+    t1, fid1 = lab4.mxu_closest_hit(rays8, planes4, tc=128,
+                                    precision="default")
+    assert (fid1.numpy() == want_f).mean() >= 0.9
+
+
+def test_tf32_rounding():
+    """tf32_round rounds to 10 mantissa bits, ties away from zero."""
+    x = torch.tensor([1.0, 1 + 2**-11, 1 + 2**-10 + 2**-11, -(1 + 2**-11),
+                      1 + 2**-12, 0.0], dtype=torch.float32)
+    want = [1.0, 1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, 0.0]
+    assert lab4.tf32_round(x).tolist() == want
+
+
+def test_lab4_wrappers_check_shapes():
+    woop, _, rays8 = _lab4_inputs()
+    with pytest.raises(ValueError, match="tc"):
+        lab4.mxu_closest_hit(rays8, lab4.make_planes4(woop), tc=512)
+    with pytest.raises(ValueError, match="precision"):
+        lab4.mxu_closest_hit(rays8, lab4.make_planes4(woop), tc=128,
+                             precision="bf16")
+    with pytest.raises(ValueError, match="no kernel"):
+        lab4.vpu_rol_closest_hit(rays8.to("meta"),
+                                 lab4.make_planesT(woop).to("meta"), tc=128)
+
+
+@pytest.fixture(scope="module")
+def diag_inputs():
+    """JAX tables of the 2,316-face scene, the port's, and 256 pixel8
+    rays (one TN block) from the lab's own ray streams."""
+    flat = jax_scene(*DIAG_GRID)
+    tv = np.array(jax.jit(JaxTraceData.from_scene)(flat).tri_verts)
+    jpk = jax.jit(lambda t: jpacket.precompute_packet(t, tc=128))(
+        jnp.asarray(tv))
+    planes, boxes = lab5_diag.diag_tables(torch.from_numpy(tv))
+    o, d, _ = lab5.make_rays(port_scene(flat), 256, "pixel8")
+    rays = torch.cat([o, d, torch.ones((256, 1)), torch.zeros((256, 1))],
+                     dim=1).contiguous()
+    return jpk, planes, boxes, rays
+
+
+def test_diag_tables_match_jax(diag_inputs):
+    jpk, planes, boxes, _ = diag_inputs
+    assert np.array_equal(np.asarray(jpk.planes), planes.numpy())
+    assert np.array_equal(np.asarray(jpk.boxes), boxes.numpy())
+    assert planes.shape[0] // lab5_diag.ROWS == 19 and boxes.shape[1] == 128
+
+
+@pytest.mark.parametrize("variant", [v for v in lab5_diag.VARIANTS
+                                     if v != "epilogue"])
+def test_kernel_f_twin_equals_jax(diag_inputs, variant):
+    """Each variant of kernel F's twin equals lab5_diag.make_kernel in
+    interpret mode exactly, on 256 pixel8 rays of the 19-chunk scene."""
+    _, planes, boxes, rays = diag_inputs
+    cp = boxes.shape[1]
+    want = pl.pallas_call(
+        jdiag.make_kernel(cp, variant), grid=(1,),
+        in_specs=[pl.BlockSpec((jdiag.TN, 8), lambda i: (i, 0)),
+                  pl.BlockSpec(tuple(planes.shape), lambda i: (0, 0)),
+                  pl.BlockSpec(tuple(boxes.shape), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((jdiag.TN, 1), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((256, 1), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((jdiag.PACKET, cp), jnp.int32),
+                        pltpu.VMEM((jdiag.PACKET, jdiag.CHUNK), jnp.float32)],
+        interpret=True)(*(jnp.asarray(x.numpy())
+                          for x in (rays, planes, boxes)))
+    got = lab5_diag.diag_run(variant, rays, planes, boxes)
+    assert got.shape == (256, 1)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    if variant == "walk":
+        best, visits = lab5_diag.walk(rays.view(32, 8, 8), planes,
+                                      lab5_diag._keys(rays.view(32, 8, 8),
+                                                      boxes)[2])
+        assert torch.equal(best.reshape(256, 1), got)
+        assert (visits >= 1).all() and (visits < 19).all()
+        assert float((got < lab5_diag.REAL_MAX).float().mean()) > 0.3
+
+
+def test_kernel_f_epilogue_and_checks(diag_inputs):
+    """epilogue gives REAL_MAX + 0 on the filled scratch; the wrapper
+    refuses walkfix below 16 chunks, more than 1024 chunk boxes and a
+    ray count that is not a multiple of 256."""
+    _, planes, boxes, rays = diag_inputs
+    out = lab5_diag.diag_run("epilogue", rays, planes, boxes)
+    assert (out == lab5_diag.REAL_MAX).all()
+    with pytest.raises(ValueError, match="walkfix"):
+        lab5_diag.diag_run("walkfix", rays, planes[:15 * 16], boxes)
+    big = torch.zeros((8, 1152))
+    with pytest.raises(ValueError, match="1024"):
+        lab5_diag.diag_run("walk", rays, torch.zeros((1100 * 16, 128)), big)
+    with pytest.raises(ValueError, match="multiple"):
+        lab5_diag.diag_run("walk", rays[:128], planes, boxes)
+
+
+@pytest.mark.parametrize("mode", ["camera", "pixel8", "random"])
+def test_lab5_rays_match_jax(mode):
+    """make_rays gives the JAX tool's numpy streams bit for bit."""
+    flat = jax_scene()
+    jo, jd, _ = jlab5.make_rays(flat, 512, mode)
+    o, d, tv = lab5.make_rays(port_scene(flat), 512, mode)
+    assert np.array_equal(o.numpy(), np.asarray(jo))
+    assert np.array_equal(d.numpy(), np.asarray(jd))
+    assert tv.shape == (132, 3, 3)
+
+
+def test_lab5_box_scene_names_the_missing_file():
+    with pytest.raises(FileNotFoundError, match="box.gltf"):
+        lab5.make_scene("box", torch.device("cpu"))
+
+
+MAINS = {
+    "kernel_lab": (kernel_lab, ["--n", "256", "--f", "228"],
+                   ["dense_1Mx2048_ms", "dense_gpairs_per_s",
+                    "dense_coherent_1Mx2048_ms",
+                    "dense_coherent_gpairs_per_s", "row_gather_1Mx8_ms",
+                    "row_gather_melem_per_s"]),
+    "lab4": (lab4, ["--n", "128", "--f", "1948"],
+             ["baseline_1Mx2048_ms", "baseline_gpairs_per_s",
+              "mxu_tc256_highest_ms", "mxu_tc1024_highest_gpairs_per_s",
+              "mxu_tc512_default_ms", "vpu_rol_tc256_ms",
+              "vpu_rol_tc512_gpairs_per_s"]),
+    "lab5": (lab5, ["--n", "256", "--scenes", "room"], []),
+    "lab5_diag": (lab5_diag, ["--n", "256", "--n-lat", "10", "--n-lon", "16"],
+                  [f"{v}_{s}" for v in lab5_diag.VARIANTS
+                   for s in ("ms", "ns_per_packet")]),
+    "lab6": (lab6, ["--n", "256", "--width", "16", "--height", "16",
+                    "--spp", "1", "--depth", "3"],
+             ["mega_fwd_ms", "mega_save_ms", "replay_fwd_ms",
+              "replay_vjp_ms", "full_vjp_ms", "modular_fwd_ms", "rays",
+              "full_vjp_rays_per_s"]),
+    "profile_stages": (profile_stages, ["--width", "8", "--height", "8",
+                                        "--spp", "2", "--depth", "3"],
+                       ["frame_s", "rays_per_s", "intersect_frame_s",
+                        "intersect_ms_per_dispatch", "glue_frame_s",
+                        "glue_ms_per_bounce", "residual_s"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAINS))
+def test_lab_main_runs_on_the_cpu(name, capsys):
+    """Each lab's main runs with --device cpu at a tiny size (the plain
+    twins) and prints its JSON, naming the device."""
+    mod, argv, keys = MAINS[name]
+    res = mod.main(["--device", "cpu", "--reps", "1"] + argv)
+    out = capsys.readouterr().out
+    assert res["device"] == "cpu"
+    for k in keys:
+        assert np.isfinite(res[k]) and f'"{k}"' in out, k
+    if name == "lab5":
+        cell = res["room(1804f)"]
+        for mode in ("camera", "pixel8", "random"):
+            for impl in ("packet", "dense", "bvh"):
+                assert cell[f"{mode}.{impl}_ms"] > 0
+            assert 0 < cell[f"{mode}.visits_mean"] <= cell[
+                f"{mode}.chunks_total"]
+        assert json.loads(out[out.index("{"):])["room(1804f)"] == cell

@@ -222,13 +222,11 @@ def test_visits_bounded_and_culled(large):
 
 @pytest.mark.parametrize("isect", ["bvh", "bruteforce", "packet"])
 def test_config_intersectors(isect):
-    """RenderConfig takes "packet"; "bvh" and "bruteforce" are not
-    ported yet and raise, naming the ROADMAP item."""
-    if isect == "packet":
-        assert RenderConfig(intersector=isect).intersector == "packet"
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RenderConfig(intersector=isect)
+    """RenderConfig takes "packet", "bvh" and "bruteforce" (the LBVH walk
+    and the oracle, tests/test_torch_lbvh.py); an unknown name raises."""
+    assert RenderConfig(intersector=isect).intersector == isect
+    with pytest.raises(ValueError, match="unknown intersector"):
+        RenderConfig(intersector=isect + "x")
 
 
 def test_routing():

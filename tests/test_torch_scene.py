@@ -111,14 +111,16 @@ def test_big_room_pads_to_megakernel_limit():
 def test_config_validation():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RenderConfig(mode="physical")
-    for isect in ("bvh", "bruteforce"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RenderConfig(intersector=isect)
-    assert RenderConfig(intersector="packet").intersector == "packet"
+    for isect in ("bvh", "bruteforce", "packet"):
+        assert RenderConfig(intersector=isect).intersector == isect
     with pytest.raises(ValueError):
         RenderConfig(intersector="octree")
     with pytest.raises(ValueError):
         RenderConfig(spp=0)
+    with pytest.raises(ValueError):
+        RenderConfig(bvh_source="disk")
+    with pytest.raises(ValueError):
+        RenderConfig(stack_depth=0)
 
 
 def test_textured_scene_not_ported():

@@ -28,9 +28,18 @@ class RenderConfig:
     # "dense" tests every ray against every triangle (ops/dense.py) and
     # resolves to "packet" above 8192 padded faces
     # (render/renderer.resolve_intersector); "packet" forces the
-    # near-to-far chunk walk (ops/packet.py). The LBVH and brute-force
-    # intersectors are not ported yet.
+    # near-to-far chunk walk (ops/packet.py); "bruteforce" is the plain
+    # Moller-Trumbore oracle (ops/intersect.py); "bvh" the LBVH lockstep
+    # walk (ops/traverse.py), an oracle of the LBVH build. The last two
+    # run the modular loop, never the megakernel.
     intersector: str = "dense"
+    # Stack slots per ray of the "bvh" walk: holds a tree of depth
+    # stack_depth - 1 (the Renderer refuses a deeper tree).
+    stack_depth: int = 32
+    # Where the "bvh" intersector's tree is built: "device" in PyTorch
+    # with the frame (ops/lbvh.py), "host" once per scene by the C++
+    # builder (utils/native.py), its boxes padded by 1e-5 relative.
+    bvh_source: str = "device"
     # (pixel, sample) lanes are processed in chunks of up to this many
     # rays; the cap bounds live ray-state memory. Images do not depend
     # on it (per-lane keys).
@@ -45,7 +54,7 @@ class RenderConfig:
 
     def __post_init__(self):
         for name in ("width", "height", "spp", "max_depth",
-                     "rays_per_dispatch"):
+                     "rays_per_dispatch", "stack_depth"):
             value = getattr(self, name)
             if not isinstance(value, int) or value < 1:
                 raise ValueError(f"{name} must be a positive int: {value!r}")
@@ -57,10 +66,8 @@ class RenderConfig:
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.intersector not in _INTERSECTORS:
             raise ValueError(f"unknown intersector {self.intersector!r}")
-        if self.intersector not in ("dense", "packet"):
-            raise NotImplementedError(
-                f"intersector={self.intersector!r} is not ported yet "
-                "(ROADMAP.md, port item 1.6 'LBVH and oracles')")
+        if self.bvh_source not in ("device", "host"):
+            raise ValueError(f"unknown bvh_source {self.bvh_source!r}")
 
     @property
     def n_pixels(self) -> int:

@@ -8,7 +8,10 @@ chunking. A chunk runs the megakernel (ops/mega.py) when the scene
 qualifies and `cfg.megakernel` is set, else the modular bounce loop
 (render/integrator.py) on the dense closest hit (ops/dense.py) or,
 above 8192 padded faces or on request, the packet traversal
-(ops/packet.py): `resolve_intersector`.
+(ops/packet.py): `resolve_intersector`. The oracles "bvh" (the LBVH
+walk, ops/traverse.py) and "bruteforce" (ops/intersect.py) run the
+modular loop only; `Renderer` refuses a tree deeper than the bvh walk's
+stack holds.
 
 Kernels run where the scene's tensors live: on CUDA the hand-written
 kernels, on the CPU their plain PyTorch twins. `render_pixel_ids` and
@@ -23,12 +26,15 @@ import dataclasses
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tinypathtracer_tpu_torch.config import RenderConfig
 from tinypathtracer_tpu_torch.models.scene import FlatScene
 from tinypathtracer_tpu_torch.ops.dense import (WoopTris, closest_hit_dense,
                                                 precompute_woop)
+from tinypathtracer_tpu_torch.ops.intersect import closest_hit_bruteforce
+from tinypathtracer_tpu_torch.ops.lbvh import BVH, build_lbvh, tree_depth
 from tinypathtracer_tpu_torch.ops.mega import (MEGA_MAX_FACES, mega_available,
                                                trace_paths_mega)
 from tinypathtracer_tpu_torch.ops.packet import (PacketTris,
@@ -36,8 +42,10 @@ from tinypathtracer_tpu_torch.ops.packet import (PacketTris,
                                                  precompute_packet)
 from tinypathtracer_tpu_torch.ops.sampling import (fold_all, fold_in,
                                                    fold_lanes, lane_uniform)
+from tinypathtracer_tpu_torch.ops.traverse import closest_hit_bvh
 from tinypathtracer_tpu_torch.render import film, raygen
 from tinypathtracer_tpu_torch.render.integrator import TraceData, trace_paths
+from tinypathtracer_tpu_torch.utils import native
 
 # Key-derivation tag for the camera-jitter draw; bounces use their depth
 # (0..max_depth-1) as the tag, so any large constant is collision-free.
@@ -47,13 +55,16 @@ _CAM_TAG = 0x00CA_0CA1
 @dataclasses.dataclass
 class PipelineState:
     """What the per-pixel render needs: the scene, its world-space trace
-    data, the Woop triangles (kernels A and B) and, on the packet route,
-    the packet traversal's chunk tables (whose `woop` is `woop`)."""
+    data and the tables of the intersector it resolved to, which
+    `hit_fn` dispatches on: the packet traversal's chunk tables (whose
+    `woop` is `woop`), else the LBVH, else the Woop triangles of the
+    dense closest hit (kernels A and B), else none (the brute force)."""
 
     scene: FlatScene
     data: TraceData
-    woop: WoopTris
+    woop: Optional[WoopTris]
     packet: Optional[PacketTris] = None
+    bvh: Optional[BVH] = None
 
 
 def resolve_intersector(cfg: RenderConfig, n_faces: int) -> str:
@@ -66,23 +77,55 @@ def resolve_intersector(cfg: RenderConfig, n_faces: int) -> str:
     return cfg.intersector
 
 
-def prepare_state(scene: FlatScene, cfg: RenderConfig) -> PipelineState:
+def prepare_state(scene: FlatScene, cfg: RenderConfig,
+                  prebuilt_bvh: Optional[BVH] = None) -> PipelineState:
+    """Trace data and intersector tables of one frame. prebuilt_bvh (the
+    "bvh" route): a tree built elsewhere (host_build_bvh), used with
+    this frame's triangles."""
     data = TraceData.from_scene(scene)
     # the intersector's tables carry no gradient (hit ids are detached)
     tri_verts = data.tri_verts.detach()
-    if resolve_intersector(cfg, tri_verts.shape[0]) == "packet":
-        pk = precompute_packet(tri_verts)
-        return PipelineState(scene=scene, data=data, woop=pk.woop, packet=pk)
-    return PipelineState(scene=scene, data=data,
-                         woop=precompute_woop(tri_verts))
+    isect = resolve_intersector(cfg, tri_verts.shape[0])
+    state = PipelineState(scene=scene, data=data, woop=None)
+    if isect == "packet":
+        state.packet = precompute_packet(tri_verts)
+        state.woop = state.packet.woop
+    elif isect == "dense":
+        state.woop = precompute_woop(tri_verts)
+    elif isect == "bvh":
+        state.bvh = (build_lbvh(tri_verts) if prebuilt_bvh is None
+                     else dataclasses.replace(prebuilt_bvh.to(scene.device),
+                                              tri_verts=tri_verts))
+    return state
 
 
-def hit_fn(state: PipelineState):
-    """The modular loop's closest_hit: the packet traversal where the
-    state holds its tables, else the dense closest hit."""
+def host_build_bvh(scene: FlatScene, pad_rel: float = 1e-5) -> BVH:
+    """The LBVH of the scene's world-space triangles, built on the host
+    by the C++ builder (utils/native.py; raises if it does not build).
+    Boxes are widened by pad_rel * max(1, |bmin| + |bmax|), so that
+    rounding differences between this transform and the frame's can
+    never cull a true hit (box tests need only be conservative). On the
+    CPU; the renderer moves it to the frame's device."""
+    wv, _ = scene.to("cpu").world_geometry()
+    tri = wv[scene.indices.cpu().long()].numpy()
+    out = native.build_lbvh_host(tri)
+    pad = pad_rel * np.maximum(1.0, np.abs(out["bmax"]) + np.abs(out["bmin"]))
+    out.update(bmin=out["bmin"] - pad, bmax=out["bmax"] + pad, tri_verts=tri)
+    return BVH.from_numpy(out, "cpu")
+
+
+def hit_fn(state: PipelineState, cfg: RenderConfig):
+    """The modular loop's closest_hit on the state's tables."""
     if state.packet is not None:
         return functools.partial(closest_hit_packet, pk=state.packet)
-    return functools.partial(closest_hit_dense, woop=state.woop)
+    if state.bvh is not None:
+        return functools.partial(closest_hit_bvh, bvh=state.bvh,
+                                 stack_depth=cfg.stack_depth)
+    if state.woop is not None:
+        return functools.partial(closest_hit_dense, woop=state.woop)
+    tri_verts = state.data.tri_verts.detach()
+    return functools.partial(closest_hit_bruteforce, tri_verts=tri_verts,
+                             chunk=min(512, max(8, tri_verts.shape[0])))
 
 
 def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key):
@@ -108,8 +151,9 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key):
     spp = cfg.spp
     data = state.data
     use_mega = (cfg.megakernel and state.packet is None
+                and state.woop is not None
                 and mega_available(data, cfg, state.woop))
-    hit = hit_fn(state)
+    hit = hit_fn(state, cfg)
     n = pix.shape[0]
     # all spp of a pixel stay in one chunk (the sample sum is in-chunk)
     px_chunk = max(1, min(n, cfg.rays_per_dispatch // spp))
@@ -126,9 +170,10 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key):
     return torch.cat(out, dim=0)
 
 
-def render_frame(scene: FlatScene, cfg: RenderConfig, key):
+def render_frame(scene: FlatScene, cfg: RenderConfig, key,
+                 prebuilt_bvh: Optional[BVH] = None):
     """Render one frame; returns the radiance SUM image [H, W, 3]."""
-    state = prepare_state(scene, cfg)
+    state = prepare_state(scene, cfg, prebuilt_bvh)
     pix = torch.arange(cfg.n_pixels, dtype=torch.int64, device=scene.device)
     return render_pixel_ids(state, cfg, pix, key).reshape(
         cfg.height, cfg.width, 3)
@@ -157,10 +202,48 @@ class Renderer:
     def __init__(self, cfg: RenderConfig, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device, "Renderer")
+        self._bvh_cache = {}
+        self._stack_checked = set()
+
+    def _validate_stack(self, scene: FlatScene):
+        """The stack guard of the "bvh" walk: a Karras LBVH can
+        degenerate to depth ~F (collinear centroids build a comb), and a
+        fixed stack too small for it would drop subtrees silently. The
+        walk pushes both children per pop, so a tree of depth D needs
+        D + 1 slots: measure the scene's tree once and refuse to render
+        when cfg.stack_depth could overflow."""
+        cfg = self.cfg
+        if cfg.intersector != "bvh" or id(scene) in self._stack_checked:
+            return
+        if cfg.bvh_source == "host":
+            bvh = self._bvh_for(scene)
+        else:
+            bvh = build_lbvh(
+                TraceData.from_scene(scene.to(self.device)).tri_verts)
+        depth = tree_depth(bvh)
+        if depth + 1 > cfg.stack_depth:
+            raise ValueError(
+                f"bvh stack_depth={cfg.stack_depth} can overflow: this "
+                f"scene's LBVH has depth {depth} (needs {depth + 1} "
+                f"slots). Raise RenderConfig.stack_depth.")
+        self._stack_checked.add(id(scene))
+
+    def _bvh_for(self, scene: FlatScene) -> Optional[BVH]:
+        """The host-built tree of the "bvh" route with bvh_source="host",
+        cached for the last scene; None otherwise."""
+        cfg = self.cfg
+        if not (cfg.intersector == "bvh" and cfg.bvh_source == "host"):
+            return None
+        bvh = self._bvh_cache.get(id(scene))
+        if bvh is None:
+            bvh = host_build_bvh(scene).to(self.device)
+            self._bvh_cache = {id(scene): bvh}       # single-entry cache
+        return bvh
 
     def render(self, scene: FlatScene, key):
         """Returns the mean-radiance image [H, W, 3], top-down rows."""
         with torch.inference_mode():
+            self._validate_stack(scene)
             rad_sum = render_frame(scene.to(self.device), self.cfg,
-                                   key.to(self.device))
+                                   key.to(self.device), self._bvh_for(scene))
             return film.to_image(rad_sum, self.cfg.spp)

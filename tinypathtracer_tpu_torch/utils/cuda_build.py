@@ -43,23 +43,44 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _library(name: str) -> Path:
+    """The shared library of `csrc/<name>.cu`, named by a hash of its
+    source, the shared headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(names) -> None:
+    """Compile the libraries of `csrc/<name>.cu` for every name that is
+    not built yet, one nvcc process each, all running at once."""
+    procs = []
+    for name in names:
+        lib = _library(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs.append((name, lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, lib, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{err}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (once per source hash) and load `csrc/<name>.cu`."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src] + sorted(CSRC.glob("*.cuh")):
-        h.update(path.read_bytes())
-    lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+    build_libraries([name])
+    return ctypes.CDLL(str(_library(name)))
 
 
 def check_launch(status: int, kernel: str) -> None:
