@@ -41,18 +41,23 @@ non-zero):
   9. kernel C (the packet traversal) against its plain twin on the card
      in the 61,452-face scene (65,536 slots, 128 chunks): 65,536 random
      rays, a ragged batch and a half-masked batch; (slot, t, u, v) and
-     the visit counts must be exactly equal;
+     the visit counts must be exactly equal; on the ragged and the
+     half-masked batch the chunks each block staged must equal the plain
+     schedule model's (ops/packet._packet_schedule);
  10. kernel C against kernel A at the main path's shapes: one 2**20-lane
      camera chunk of the large scene and that chunk's first-bounce rays;
-     exactly equal; times of kernel C and kernel A on the same rays and
-     of the twin, the visits per query, and the lanes kernel C would get
-     wrong without its box margins;
+     exactly equal; times of kernel C beside its bound and of kernel A on
+     the same rays and of the twin, the visits per query, kernel C's
+     stagings per block and plane bytes staged per query, its registers
+     and shared memory, and the lanes kernel C would get wrong without
+     its box margins;
  11. the large-scene main paths through the public entry points, launch
      counters zeroed before each and read after: the 512x512 @16 spp d8
      frame of the 61,452-face scene (which the renderer routes to the
      packet traversal) and its train step (one warm-up, 3 timed, peak
-     memory), then one profiled run of each; each must launch kernel C
-     and neither kernel A nor B;
+     memory), then one profiled run of each with kernel C's total and
+     mean per launch; each must launch kernel C and neither kernel A
+     nor B;
  12. the same frame through the modular loop on kernel A, forced through
      the pipeline state: bit-equal to the packet frame;
  13. kernels D (tensor-core transform, both precisions) and E (staged
@@ -236,9 +241,10 @@ def packet_work(visits, pk):
 
 
 def rescan_ops(visits, pk):
-    """Operations kernel C's design spends beyond packet_work: it
-    rescans the C boxes once per visit (plus the one rescan counted
-    there) to pick the next chunk instead of keeping a sorted list."""
+    """Operations kernel C's design spends beyond packet_work: after
+    each visit a warp scans the C boxes again, lanes over boxes, for the
+    ray's next key (the one scan per live ray is counted there) instead
+    of keeping a sorted list."""
     return int(visits.sum()) * pk.n_chunks * OPS_SLAB
 
 
@@ -268,9 +274,24 @@ def random_rays(n, gen, alive=None):
     return torch.cat([o, d, a, torch.zeros((n, 1))], dim=1)
 
 
+def packet_stagings(rays, pk):
+    """Kernel C's outputs on rays and the chunks each of its blocks
+    staged (a launch that reports them; the route's launches do not)."""
+    from tinypathtracer_tpu_torch.ops import packet
+
+    n = rays.shape[0]
+    stagings = torch.zeros((-(-n // packet.PACKET_BLOCK),),
+                           dtype=torch.int32, device=rays.device)
+    out = packet._packet_cuda(rays, pk.woop.planes, pk.boxes, pk.tc,
+                              stagings=stagings)
+    return out, stagings
+
+
 def packet_vs_twin(pk, dev):
     """Phase 9: kernel C against its twin on random rays: a full batch,
-    a ragged one and a half-masked one. Returns the max |uv| error."""
+    a ragged one and a half-masked one; on the last two its per-block
+    staging counts against the plain schedule model's. Returns the max
+    |uv| error."""
     from tinypathtracer_tpu_torch.ops import packet
 
     gen = torch.Generator().manual_seed(1)
@@ -291,6 +312,22 @@ def packet_vs_twin(pk, dev):
             f"{float(v[v > 0].mean()):.2f} (max {int(v.max())})")
         if half and bool((got[3][~alive.to(dev)] != 0).any()):
             raise AssertionError("a dead lane of kernel C tested a chunk")
+        if n % packet.PACKET_BLOCK or half:
+            counted, stagings = packet_stagings(rays, pk)
+            model, m_stagings, _ = packet._packet_schedule(
+                rays, pk.woop.planes, pk.boxes, pk.tc)
+            torch.cuda.synchronize()
+            check_equal(counted, want, f"{what}, counting launch",
+                        ("t", "slot", "uv", "visits"))
+            check_equal(model, want, f"schedule model, {what}",
+                        ("t", "slot", "uv", "visits"))
+            check_equal([stagings], [m_stagings],
+                        f"kernel C's stagings vs the schedule model, {what}",
+                        ("stagings",))
+            log(f"  kernel C's stagings per block = the schedule model's on "
+                f"all {stagings.shape[0]} blocks: mean "
+                f"{float(stagings.float().mean()):.1f}, max "
+                f"{int(stagings.max())} (for {pk.n_chunks} chunks)")
     return err
 
 
@@ -315,10 +352,12 @@ def first_bounce_rays(state, cfg, o, d, keys):
 def packet_vs_dense(T, cfg, host_scene, key, dev):
     """Phase 10: kernel C against kernel A on one 2**20-lane camera chunk
     of the large scene and on its first-bounce rays, exactly; times of
-    C, A and the twin, kernel C's work and bound on each. Also counts the
-    live lanes on which kernel C with the boxes not widened by their
-    margins (the JAX package's slab test) would differ from kernel A.
-    Returns (ms, twin ms, max |uv| error, work) of the camera rays."""
+    C, A and the twin, kernel C's work and bound on each, its stagings
+    per block and plane bytes staged, its registers and shared memory.
+    Also counts the live lanes on which kernel C with the boxes not
+    widened by their margins (the JAX package's slab test) would differ
+    from kernel A. Returns {"camera": (ms, work), "first-bounce": (ms,
+    work)}, the twin's ms on the camera rays and the max |uv| error."""
     from tinypathtracer_tpu_torch.ops import dense, packet
     from tinypathtracer_tpu_torch.render.renderer import (lane_rays,
                                                           prepare_state)
@@ -353,16 +392,29 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
         err = max(err, float((got[2][live] - want[2][live]).abs().max()))
         v = got[3][live].float()
         share = float((got[1][live] >= 0).float().mean())
-        res[name] = (c_ms, got[3])
-        ops, nbytes = packet_work(got[3], pk)
+        work = packet_work(got[3], pk)
+        res[name] = (c_ms, work)
+        ops, nbytes = work
         log(f"kernel C vs kernel A, {name} rays: {n} lanes, "
             f"{int(live.sum())} live, exact; hit share {share:.4f}; visits "
             f"per live ray {float(v.mean()):.3f} of {pk.n_chunks} chunks "
-            f"(max {int(v.max())}); kernel C {c_ms:.2f} ms (work "
-            f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
-            f"{bound(ops, nbytes)[0]:.3f} ms; the design's rescans add "
+            f"(max {int(v.max())}); kernel C {c_ms:.2f} ms beside its bound "
+            f"{bound(ops, nbytes)[0]:.3f} ms (work {ops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; the next-key scans add "
             f"{rescan_ops(got[3], pk) / 1e9:.2f} GFLOP), kernel A "
             f"{a_ms:.2f} ms on the same rays")
+        counted, stagings = packet_stagings(rays, pk)
+        check_equal(counted, got, f"kernel C counting stagings, {name} rays",
+                    ("t", "slot", "uv", "visits"))
+        s = stagings.float()
+        staged = float(s.sum()) * pk.tc * 48
+        streamed = float(got[3].float().sum()) * pk.tc * 48
+        log(f"  stagings per block of {packet.PACKET_BLOCK} rays: mean "
+            f"{float(s.mean()):.2f}, median {float(s.median()):.0f}, max "
+            f"{int(s.max())}; rays served per staging "
+            f"{float(got[3].float().sum() / s.sum()):.2f}; plane bytes "
+            f"staged {staged / 1e9:.3f} GB per query (a private stream "
+            f"per visit would read {streamed / 1e9:.2f} GB)")
         unw = packet.packet_hit(rays, bare.woop.planes, bare.boxes, bare.tc)
         lost = ((unw[1] != want[1]) | (unw[0] != want[0])) & live
         log(f"  without the box margins kernel C would differ from kernel A "
@@ -374,8 +426,12 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
                         ("t", "slot", "uv", "visits"))
             log(f"kernel C vs twin, {n} camera rays: exact; plain twin "
                 f"{plain_ms:.1f} ms")
-    c_ms, visits = res["camera"]
-    return c_ms, plain_ms, err, packet_work(visits, pk)
+    regs, static = packet.kernel_resources()
+    log(f"kernel C: {regs} registers per thread; shared memory per block "
+        f"{static} B static (ray state) + "
+        f"{packet.stage_bytes(pk.n_chunks, pk.tc)} B dynamic (two stage "
+        f"buffers of {pk.tc} slots, histogram of {pk.n_chunks} chunks)")
+    return res, plain_ms, err
 
 
 def zero_launches():
@@ -435,7 +491,15 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
         f"{best * 1e3:.1f} ms, {n_rays / best:,.0f} rays/s, image mean "
         f"{float(img.mean()):.5f}; launches in 3 frames {frame_launches}")
     check_packet_route(frame_launches, "the large-scene frame")
-    profile_step("large-scene frame", r.render, host_scene, key)
+    mean_ms = log_packet_share("large-scene frame",
+                               profile_step("large-scene frame", r.render,
+                                            host_scene, key))
+    mean_bound, count = frame_packet_bound(
+        lambda: r.render(host_scene, key),
+        prepare_state(host_scene.to(dev), cfg).packet)
+    log(f"  kernel C's bound in the frame, from each launch's visits: "
+        f"{mean_bound:.3f} ms a launch over {count} launches (mean "
+        f"{mean_ms:.2f} ms a launch, {mean_ms / mean_bound:.1f}x)")
     if not (img.shape == (cfg.height, cfg.width, 3)
             and torch.isfinite(img).all() and float(img.mean()) > 0.01):
         raise AssertionError("large-scene frame is not a finite, lit image")
@@ -468,8 +532,9 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
         f"{n_rays / best_step:,.0f} fwd+bwd camera rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB; launches in 4 steps {step_launches}")
     check_packet_route(step_launches, "the large-scene train step")
-    profile_step("large-scene train step", step, params, state, scene,
-                 target, T.prng_key(1, dev))
+    log_packet_share("large-scene train step",
+                     profile_step("large-scene train step", step, params,
+                                  state, scene, target, T.prng_key(1, dev)))
 
     with torch.inference_mode():
         st = prepare_state(scene, cfg)
@@ -613,7 +678,8 @@ def train_phase(T, cfg, host_scene):
 
 def profile_step(what, step, *args):
     """One step(*args) under torch.profiler: wall time, the device's busy
-    share (kernel time over wall) and the kernels with the most time."""
+    share (kernel time over wall) and the kernels with the most time.
+    Returns the rows (device ms, launches, kernel name)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -630,6 +696,42 @@ def profile_step(what, step, *args):
         f"{busy:.1f} ms ({100 * busy / wall:.1f} %)")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {ms:9.1f} ms  {count:6d} x  {key[:90]}")
+    return rows
+
+
+def log_packet_share(what, rows):
+    """Kernel C's device time in a profile: total and mean per launch.
+    Returns the mean per launch in ms."""
+    ms = sum(r[0] for r in rows if "packet_hit_kernel" in r[2])
+    count = sum(r[1] for r in rows if "packet_hit_kernel" in r[2])
+    if not count:
+        raise AssertionError(f"the profile of the {what} shows no kernel C")
+    log(f"  kernel C in the profiled {what}: {ms:.1f} ms in {count} "
+        f"launches, {ms / count:.2f} ms a launch")
+    return ms / count
+
+
+def frame_packet_bound(render, pk):
+    """The bound of kernel C's mean launch in one render() of the large
+    frame: each launch's work from its own visit counts (packet_hit is
+    wrapped for that frame only)."""
+    from tinypathtracer_tpu_torch.ops import packet
+
+    real, bounds = packet.packet_hit, []
+
+    def recorded(rays, planes, boxes, tc):
+        out = real(rays, planes, boxes, tc)
+        bounds.append(bound(*packet_work(out[3], pk))[0])
+        return out
+
+    recorded.launches = 0       # _packet_cuda counts on the module's name
+    packet.packet_hit = recorded
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        packet.packet_hit = real
+    return sum(bounds) / len(bounds), len(bounds)
 
 
 def compare_grads(T, scene, cfg, name):
@@ -1095,13 +1197,16 @@ def main():
     pk = packet.precompute_packet(
         TraceData.from_scene(large.to(dev)).tri_verts)
     err_c = packet_vs_twin(pk, dev)
-    c_ms, c_plain, err, (ops_c, bytes_c) = packet_vs_dense(
-        T, cfg, large, key.to(dev), dev)
+    c_res, c_plain, err = packet_vs_dense(T, cfg, large, key.to(dev), dev)
     err_c = max(err_c, err)
+    c_ms, (ops_c, bytes_c) = c_res["camera"]
+    fb_ms, fb_work = c_res["first-bounce"]
     bounds["packet"] = bound(ops_c, bytes_c)
+    bounds["packet_first_bounce"] = bound(*fb_work)
     log(f"work of the packet traversal on the camera chunk: "
         f"{ops_c / 1e9:.2f} GFLOP, {bytes_c / 1e6:.1f} MB; bound "
-        f"{bounds['packet']}")
+        f"{bounds['packet']}; kernel C {c_ms:.2f} ms camera, {fb_ms:.2f} ms "
+        f"first bounce (bound {bounds['packet_first_bounce'][0]:.3f} ms)")
     del pk
     packet_launches = large_scene_paths(T, cfg, large, key, dev)
 
@@ -1152,7 +1257,9 @@ def main():
          "replaces": "tinypathtracer_tpu/ops/packet.py:158",
          "launches": packet_launches["packet"], "max_abs_err": err_c,
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": bounds["packet"][0],
-         "bound_by": bounds["packet"][1], "library_ms": None},
+         "bound_by": bounds["packet"][1], "library_ms": None,
+         "first_bounce_ms": fb_ms,
+         "first_bounce_bound_ms": bounds["packet_first_bounce"][0]},
     ]
     for name, src, line, launched in (
             ("mxu", "lab4.cu", "tools/lab4.py:60", lab4_launches["mxu"]),

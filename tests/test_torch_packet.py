@@ -220,6 +220,122 @@ def test_visits_bounded_and_culled(large):
     assert float(near.float().mean()) < float(visits.float().mean())
 
 
+def _ray_table(o, d, alive):
+    return torch.from_numpy(np.concatenate(
+        [o, d, alive[:, None].astype(np.float32),
+         np.zeros((o.shape[0], 1), np.float32)], axis=1))
+
+
+@pytest.fixture(scope="module")
+def large_tables(large):
+    """The 14,348-face scene cut into 32 chunks of 512 and 128 of 128."""
+    tv, pk = large
+    return {512: pk, 128: packet.precompute_packet(torch.from_numpy(tv),
+                                                   tc=128)}
+
+
+def _per_block(x, block):
+    """[N] -> [blocks, block], zero-padded."""
+    out = torch.zeros(-(-x.shape[0] // block) * block, dtype=x.dtype)
+    out[:x.shape[0]] = x
+    return out.view(-1, block)
+
+
+# (rays, half of them masked)
+SCHEDULE_BATCHES = {"full": (512, False), "ragged": (1037, False),
+                    "half_masked": (512, True)}
+
+
+@pytest.mark.parametrize("batch", list(SCHEDULE_BATCHES))
+@pytest.mark.parametrize("tc", [128, 512])
+@pytest.mark.parametrize("block", [32, 256])
+def test_schedule_model_equals_twin(large_tables, block, tc, batch):
+    """The plain model of kernel C's block schedule gives the twin's t,
+    slot, uv and visits exactly. Its stagings obey the schedule's bounds:
+    each staging serves at least one ray, every visit is served once, and
+    a block stages at least its longest walk and at most the Σ visits of
+    its rays. (Not at most C: a served chunk can be wanted again by a ray
+    that reaches it later, and random rays stage more than C.)"""
+    pk = large_tables[tc]
+    n, half = SCHEDULE_BATCHES[batch]
+    o, d = _rays(n, seed=11)
+    alive = (np.random.default_rng(12).random(n) < 0.5 if half
+             else np.ones(n, bool))
+    rays = _ray_table(o, d, alive)
+    want = packet._packet_torch(rays, pk.woop.planes, pk.boxes, pk.tc)
+    got, stagings, served = packet._packet_schedule(
+        rays, pk.woop.planes, pk.boxes, pk.tc, block)
+    for g, w, name in zip(got, want, ("t", "slot", "uv", "visits")):
+        assert torch.equal(g, w), name
+    assert (got[3][torch.from_numpy(~alive)] == 0).all()
+    visits = _per_block(got[3], block)
+    assert stagings.dtype == torch.int32 and stagings.shape == (
+        visits.shape[0],)
+    active = torch.arange(served.shape[1])[None] < stagings[:, None]
+    assert (served[active] >= 1).all() and (served[~active] == 0).all()
+    assert torch.equal(served.sum(dim=1), visits.sum(dim=1))
+    assert (stagings >= visits.amax(dim=1)).all()
+    assert (stagings <= visits.sum(dim=1)).all()
+
+
+@pytest.mark.parametrize("slot", [60, 127])
+def test_schedule_model_ties_go_to_lowest_slot(slot):
+    """The face in `slot` duplicated: its copy lands in the next slot of
+    the same chunk (60: the warp's lane reduction decides the tie) or in
+    the next chunk (127: the merge into the ray's best decides it). Rays
+    aimed at it hit both at equal t, and the model takes the original,
+    as kernel A and the twin do."""
+    tv = _tri_verts(ROOM)
+    face = int(packet.precompute_packet(torch.from_numpy(tv),
+                                        tc=128).woop.perm[slot])
+    pk = packet.precompute_packet(
+        torch.from_numpy(np.concatenate([tv, tv[face:face + 1]])), tc=128)
+    perm = pk.woop.perm.numpy()
+    dup = int(np.nonzero(perm == tv.shape[0])[0][0])
+    assert perm[slot] == face and (dup // 128 == slot // 128) == (slot < 127)
+    rng = np.random.default_rng(6)
+    o = rng.uniform(-4.5, 4.5, (256, 3)).astype(np.float32)
+    d = tv[face].mean(axis=0) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = _ray_table(o, d, np.ones(256, bool))
+    got, _, _ = packet._packet_schedule(rays, pk.woop.planes, pk.boxes,
+                                        pk.tc, 32)
+    want = dense.dense_hit(rays, pk.woop.planes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1] == slot).sum() > 20 and not (got[1] == dup).any()
+
+
+@pytest.mark.parametrize("tc", [128, 512])
+def test_coherent_block_shares_its_stagings(large_tables, tc):
+    """Rays from one origin in a narrow cone, as camera rays of a few
+    pixels are: a block of 256 stages at least 10x fewer chunks than its
+    rays visit, so each staged chunk serves tens of rays."""
+    pk = large_tables[tc]
+    rng = np.random.default_rng(13)
+    o = np.tile(np.float32([0.3, -0.2, -4.6]), (512, 1))
+    d = np.stack([rng.uniform(-0.05, 0.05, 512),
+                  rng.uniform(-0.05, 0.05, 512), np.ones(512)],
+                 axis=1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = _ray_table(o, d, np.ones(512, bool))
+    got, stagings, _ = packet._packet_schedule(rays, pk.woop.planes,
+                                               pk.boxes, pk.tc)
+    assert (got[1] >= 0).all()
+    assert (10 * stagings <= _per_block(got[3], 256).sum(dim=1)).all()
+
+
+def test_shared_memory_limit():
+    """Kernel C takes 8,192 chunks at each chunk size precompute_packet
+    gives (the JAX kernel stops at 2,048); a histogram that cannot fit
+    beside the stage buffers is refused with the reason."""
+    static = 18560      # ray state of a 256-ray block, as the H100 build has
+    for tc in (128, 256, 512):
+        packet.check_fits(8192, tc, static)
+    with pytest.raises(ValueError, match="cannot take 60000 chunks of 512"):
+        packet.check_fits(60000, 512, static)
+
+
 @pytest.mark.parametrize("isect", ["bvh", "bruteforce", "packet"])
 def test_config_intersectors(isect):
     """RenderConfig takes "packet", "bvh" and "bruteforce" (the LBVH walk

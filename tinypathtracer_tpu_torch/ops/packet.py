@@ -27,6 +27,18 @@ the tensors' device: CPU tensors take the twin, CUDA tensors launch the
 kernel, anything else raises. The TPU kernel's 8-ray packets, its
 [S*16, 128] plane tiling and its chunk-id packing into 11 mantissa bits
 (a cap of 2048 chunks) are not carried over.
+
+On the H100 the pair tests bound kernel C, and so do the planes they
+read: a chunk is tc x 48 B (24 KB at tc = 512), and bounce rays that
+share a warp sit in different chunks. The kernel therefore walks a block
+of PACKET_BLOCK rays together. It stages the chunk most of the block's
+waiting rays wait on into shared memory (a TMA bulk copy,
+double-buffered), tests every ray waiting on it there, a warp per ray
+(two while many wait) with lanes over slots, and finds each ray's next
+chunk with the same warp. A block reads each staged chunk once, not once per ray that
+visits it. `_packet_schedule` is the plain model of that schedule: the
+tests hold it to the twin, and chip_smoke.py holds the kernel's
+per-block staging counts to it.
 """
 
 from __future__ import annotations
@@ -49,6 +61,11 @@ PACKET_TC = 512
 # Box margin, relative to max(1, |bmin| + |bmax|) over the axes
 BOX_MARGIN = 1e-5
 _I32_MAX = 2**31 - 1
+# rays (and threads) per block of kernel C: csrc/packet.cu kBlock
+PACKET_BLOCK = 256
+_LANES = 32
+# shared memory one block can have on the H100 (232,448 B = 227 KB)
+SMEM_PER_BLOCK = 232448
 # (ray, triangle) pairs per tile of the plain twin, and (ray, chunk)
 # pairs per tile of its slab test: bound its memory
 _TILE_PAIRS = 1 << 21
@@ -124,15 +141,12 @@ def _slab(rays, boxes):
     return entry, entered
 
 
-def _chunk_minima(rays, planes, tc, ray_i, chunk):
-    """Closest hit of ray ray_i[p] within chunk chunk[p], for each pair p:
-    (t [P], REAL_MAX if none; slot [P], the lowest slot at that t),
-    with the dense scan's arithmetic."""
-    c = planes.shape[0] // tc
-    cols = planes.view(c, tc, 12).permute(2, 0, 1)       # [12, C, tc]
-    iota = torch.arange(tc, dtype=torch.int64, device=rays.device)
-    t_out = torch.empty(ray_i.shape, dtype=torch.float32, device=rays.device)
-    s_out = torch.empty(ray_i.shape, dtype=torch.int64, device=rays.device)
+def _candidates(rays, planes, tc, ray_i, chunk):
+    """The pair tests of ray ray_i[p] against the tc slots of chunk
+    chunk[p], with the dense scan's arithmetic, in tiles: yields (pair
+    slice, chunk ids [P'], t [P', tc], REAL_MAX where the slot is not
+    hit)."""
+    cols = planes.view(-1, tc, 12).permute(2, 0, 1)      # [12, C, tc]
     step = max(1, _TILE_PAIRS // tc)
     for p0 in range(0, ray_i.shape[0], step):
         ps = slice(p0, p0 + step)
@@ -142,7 +156,17 @@ def _chunk_minima(rays, planes, tc, ray_i, chunk):
         col = [r[:, k:k + 1] for k in range(6)]
         t, u, v = hit_terms(origin_terms(*col[:3], w), *col[3:], w)
         ok = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > DELTA)
-        tcand = torch.where(ok, t, REAL_MAX)
+        yield ps, ck, torch.where(ok, t, REAL_MAX)
+
+
+def _chunk_minima(rays, planes, tc, ray_i, chunk):
+    """Closest hit of ray ray_i[p] within chunk chunk[p], for each pair p:
+    (t [P], REAL_MAX if none; slot [P], the lowest slot at that t),
+    with the dense scan's arithmetic."""
+    iota = torch.arange(tc, dtype=torch.int64, device=rays.device)
+    t_out = torch.empty(ray_i.shape, dtype=torch.float32, device=rays.device)
+    s_out = torch.empty(ray_i.shape, dtype=torch.int64, device=rays.device)
+    for ps, ck, tcand in _candidates(rays, planes, tc, ray_i, chunk):
         cmin = tcand.amin(dim=1)
         t_out[ps] = cmin
         s_out[ps] = ck * tc + torch.where(tcand == cmin[:, None], iota,
@@ -195,26 +219,186 @@ def _packet_torch(rays, planes, boxes, tc: int):
         chunk_t[ray_i, chunk] = pt
         chunk_s[ray_i, chunk] = ps
         t[rs], slot[rs], visits[rs] = _walk(entry, entered, chunk_t, chunk_s)
-    # the winner's (u, v), recomputed with the walk's arithmetic
+    return t, slot.int(), _winner_uv(rays, planes, slot), visits
+
+
+def _winner_uv(rays, planes, slot):
+    """[N, 2] (u, v) of each ray's winning slot, recomputed with the
+    walk's arithmetic; 0 where slot is -1."""
     w = list(planes[torch.clamp_min(slot, 0)].T)
     o, d = rays[:, 0:3].T, rays[:, 3:6].T
     _, u, v = hit_terms(origin_terms(*o, w), *d, w)
-    uv = torch.where((slot >= 0)[:, None], torch.stack([u, v], dim=1), 0.0)
-    return t, slot.int(), uv, visits
+    return torch.where((slot >= 0)[:, None], torch.stack([u, v], dim=1), 0.0)
+
+
+def _pick(hist):
+    """Per block, the chunk with the highest count, ties to the lowest
+    id (torch.argmax returns the first maximum); -1 where every count is
+    0."""
+    best = hist.argmax(dim=1)
+    return torch.where(hist.amax(dim=1) > 0, best, -1)
+
+
+def _lane_minima(rays, planes, tc, ray_i, chunk):
+    """Closest hit of ray ray_i[p] within chunk chunk[p] as kernel C's
+    warp finds it: lane l takes the lexicographic minimum of (t, slot)
+    over slots l, l + 32, ..., then the 32 lane results are reduced the
+    same way. Returns (t [P], REAL_MAX if none; slot [P])."""
+    dev = rays.device
+    rows = -(-tc // _LANES)
+    j = torch.arange(rows, device=dev)[None, :, None]
+    lane = torch.arange(_LANES, device=dev)
+    t_out = torch.empty(ray_i.shape, dtype=torch.float32, device=dev)
+    s_out = torch.empty(ray_i.shape, dtype=torch.int64, device=dev)
+    for ps, ck, tcand in _candidates(rays, planes, tc, ray_i, chunk):
+        by_lane = torch.full((ck.shape[0], rows * _LANES), REAL_MAX,
+                             device=dev)
+        by_lane[:, :tc] = tcand
+        by_lane = by_lane.view(-1, rows, _LANES)         # [P', j, lane]
+        lane_t = by_lane.amin(dim=1)                     # [P', lane]
+        lane_s = torch.where(by_lane == lane_t[:, None], j,
+                             _I32_MAX).amin(dim=1) * _LANES + lane
+        t_out[ps] = lane_t.amin(dim=1)
+        s_out[ps] = ck * tc + torch.where(lane_t == t_out[ps, None], lane_s,
+                                          _I32_MAX).amin(dim=1)
+    return t_out, s_out
+
+
+def _packet_schedule(rays, planes, boxes, tc: int, block: int = PACKET_BLOCK):
+    """Plain model of kernel C's block schedule, for the tests and
+    chip_smoke.py only: no route calls it. Rays are cut into blocks of
+    `block` in order; each block replays the kernel's rules:
+
+    - a ray waits on the chunk its next key names (none once its walk
+      has ended; dead lanes never wait);
+    - with nothing staged, the block stages the chunk most of its
+      waiting rays wait on, ties to the lowest id;
+    - while a chunk is tested, the chunk most of the other waiting rays
+      wait on is staged beside it (the same rule) and tested next; with
+      none, the block picks afresh after the test;
+    - a waiting ray's pair tests go to one warp, lanes over slots,
+      reduced lexicographically on (t, slot) (`_lane_minima`; a warp
+      that tests two rays at once reduces each alike), and are merged
+      into the ray's best on t < best or t == best with a lower slot;
+    - the ray's next key is the least (entry bits << 32 | chunk id)
+      above the visited one whose entry is <= its best t.
+
+    Returns ((t, slot, uv, visits) as `_packet_torch` does; stagings
+    [blocks] i32, the chunks each block staged, which kernel C reports;
+    served [blocks, steps] i32, the rays each block tested at each of
+    its stagings in order, 0 once it has ended)."""
+    n, c = rays.shape[0], boxes.shape[0]
+    dev = rays.device
+    nb = -(-n // block)
+    none = torch.iinfo(torch.int64).max
+    entry, entered = _slab(rays, boxes)                 # [N, C]
+    keys = (entry.view(torch.int32).long() << 32) \
+        | torch.arange(c, device=dev)
+    ids = torch.arange(nb * block, device=dev)
+    best_t = torch.full((nb * block,), REAL_MAX, device=dev)
+    best_s = torch.full((nb * block,), -1, dtype=torch.int64, device=dev)
+    visits = torch.zeros((nb * block,), dtype=torch.int32, device=dev)
+    nxt = torch.full((nb * block,), none, dtype=torch.int64, device=dev)
+
+    def next_key(r, last):
+        ok = (entered[r] & (entry[r] <= best_t[r, None])
+              & (keys[r] > last[:, None]))
+        return torch.where(ok, keys[r], none).amin(dim=1)
+
+    live = (rays[:, 6] != 0).nonzero()[:, 0]
+    nxt[live] = next_key(live, torch.zeros_like(live))
+    cur = torch.full((nb,), -1, dtype=torch.int64, device=dev)
+    stagings = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    rows = torch.arange(nb, device=dev)
+    served = []
+    while True:
+        waits = torch.where(nxt == none, -1, nxt & 0xFFFFFFFF).view(nb, block)
+        hist = torch.zeros((nb, c + 1), dtype=torch.int64, device=dev)
+        hist.scatter_add_(1, waits + 1, torch.ones_like(waits))
+        hist = hist[:, 1:]
+        fresh = cur < 0
+        cur = torch.where(fresh, _pick(hist), cur)
+        if bool((cur < 0).all()):
+            break
+        stagings += (fresh & (cur >= 0)).int()
+        others = hist.clone()
+        others[rows, cur.clamp_min(0)] = 0
+        ahead = _pick(others)
+        stagings += (ahead >= 0).int()
+        sel = (waits == cur[:, None]) & (cur >= 0)[:, None]
+        served.append(sel.sum(dim=1, dtype=torch.int32))
+        r = ids[sel.view(-1)]
+        pt, ps = _lane_minima(rays, planes, tc, r, cur[r // block])
+        take = (pt < best_t[r]) | ((pt == best_t[r]) & (ps < best_s[r]))
+        best_t[r] = torch.where(take, pt, best_t[r])
+        best_s[r] = torch.where(take, ps, best_s[r])
+        visits[r] += 1
+        nxt[r] = next_key(r, nxt[r])
+        cur = ahead
+    t = best_t[:n]
+    slot = torch.where(t < REAL_MAX, best_s[:n], -1)
+    served = (torch.stack(served, dim=1) if served
+              else torch.zeros((nb, 0), dtype=torch.int32, device=dev))
+    return ((t, slot.int(), _winner_uv(rays, planes, slot), visits[:n]),
+            stagings, served)
 
 
 @functools.cache
 def _lib():
     lib = cuda_build.load_library("packet")
     lib.tpt_packet_hit.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p] * 5
+        + [ctypes.c_void_p] * 6
     lib.tpt_packet_hit.restype = ctypes.c_int
+    lib.tpt_packet_resources.argtypes = [ctypes.c_void_p] * 2
+    lib.tpt_packet_resources.restype = ctypes.c_int
+    if lib.tpt_packet_block() != PACKET_BLOCK:
+        raise RuntimeError(f"csrc/packet.cu runs {lib.tpt_packet_block()} "
+                           f"rays a block, PACKET_BLOCK is {PACKET_BLOCK}")
     return lib
 
 
-def _packet_cuda(rays, planes, boxes, tc: int):
+@functools.cache
+def kernel_resources():
+    """(registers per thread, static shared memory bytes per block) of
+    kernel C, from cudaFuncGetAttributes."""
+    regs, static = ctypes.c_int(), ctypes.c_int()
+    status = _lib().tpt_packet_resources(ctypes.byref(regs),
+                                         ctypes.byref(static))
+    cuda_build.check_launch(status, "packet_resources")
+    return regs.value, static.value
+
+
+def stage_bytes(n_chunks: int, tc: int) -> int:
+    """Dynamic shared memory of one block of kernel C: two stage buffers
+    of tc slots (48 B each) and the histogram (one int per chunk)."""
+    return 2 * 48 * tc + 4 * n_chunks
+
+
+def check_fits(n_chunks: int, tc: int, static: int) -> None:
+    """Raise unless a block of kernel C with `static` bytes of ray state
+    has room for the stage buffers and the histogram of n_chunks chunks
+    of tc slots."""
+    if stage_bytes(n_chunks, tc) + static > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"kernel C cannot take {n_chunks} chunks of {tc} slots: a block "
+            f"needs {stage_bytes(n_chunks, tc)} B of stage buffers and "
+            f"histogram beside {static} B of ray state, more than the "
+            f"{SMEM_PER_BLOCK} B of shared memory an H100 block can have")
+
+
+def _packet_cuda(rays, planes, boxes, tc: int, stagings=None):
+    """Kernel C. With `stagings` (int32 [ceil(N / PACKET_BLOCK)] on the
+    rays' device) it also writes the chunks each block staged; the route
+    passes none."""
     cuda_build.check_operands(rays, planes, boxes)
-    n, dev = rays.shape[0], rays.device
+    n, dev, c = rays.shape[0], rays.device, boxes.shape[0]
+    check_fits(c, tc, kernel_resources()[1])
+    if stagings is not None and not (
+            stagings.dtype == torch.int32 and stagings.device == dev
+            and stagings.is_contiguous()
+            and stagings.shape == (-(-n // PACKET_BLOCK),)):
+        raise ValueError(f"stagings must be a contiguous int32 tensor of "
+                         f"{-(-n // PACKET_BLOCK)} on {dev}")
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -222,9 +406,10 @@ def _packet_cuda(rays, planes, boxes, tc: int):
     if n == 0:
         return t, slot, uv, visits
     status = _lib().tpt_packet_hit(
-        rays.data_ptr(), planes.data_ptr(), boxes.data_ptr(), n,
-        boxes.shape[0], tc, t.data_ptr(), slot.data_ptr(), uv.data_ptr(),
-        visits.data_ptr(), cuda_build.stream_ptr(dev))
+        rays.data_ptr(), planes.data_ptr(), boxes.data_ptr(), n, c, tc,
+        t.data_ptr(), slot.data_ptr(), uv.data_ptr(), visits.data_ptr(),
+        None if stagings is None else stagings.data_ptr(),
+        cuda_build.stream_ptr(dev))
     cuda_build.check_launch(status, "packet_hit")
     packet_hit.launches += 1
     return t, slot, uv, visits
