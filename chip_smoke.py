@@ -7,13 +7,21 @@ one NVIDIA GPU.
 Phases (each ends in torch.cuda.synchronize(); any failure exits
 non-zero):
   1. the card, the versions, and the build of the six CUDA kernels
-     (five sources, one nvcc each, all at once) from this checkout;
+     (five sources and lab_mega's variant of kernel B, one nvcc each, all
+     at once) from this checkout;
   2. kernel A (dense closest hit) against its plain PyTorch twin on the
      card: 65,536 rays from inside the 1,804-face room plus a ragged
      batch; (slot, t, u, v) must be exactly equal;
-  3. kernel B (the megakernel) against its plain twin on the card:
-     64x64 @ 4 spp, depth 8, on the room and on a 3-light variant,
-     within atol 1e-5 (the bound of tests/test_torch_mega.py);
+  3. kernel B (the megakernel), both instances, against its plain twin
+     on the card: 64x64 @ 4 spp, depth 8, on the room, the big room and
+     their 3-light variants, each whole and cut to a ragged 1,037 paths;
+     the [16, N] rows within atol 1e-5 (the bound of
+     tests/test_torch_mega.py), the hit rows exactly, the save_hits
+     instance's [16, N] rows equal to the forward's; then each instance
+     on a grid of 3 blocks, where lanes serve several paths (the ragged
+     batch leaves the last pools partial): rows equal to the kernel's
+     own grid's, rounds per block equal to the schedule model's
+     (ops/mega._mega_schedule) on both grids, lane efficiency logged;
   4. the main path through the public entry point,
      Renderer(RenderConfig(512, 512, 16, 8), device="cuda").render, with
      the launch counters zeroed first: the megakernel frame, the modular
@@ -24,10 +32,16 @@ non-zero):
      one 2**20-lane chunk of the frame: kernel A on its camera rays
      (exact), kernel B on its rays and uniforms in the room and in the
      big room (atol 1e-5); then the kernels' times beside the twins';
-  6. kernel B's save_hits instance against its twin: the same 2**20-path
-     room chunk and 64x64 @ 4 spp d8 on the 3-light room; the hit rows
-     must equal the twin's exactly and the [16, N] rows the forward
-     instance's; times of both instances and their registers;
+  6. kernel B's registers and local memory (all 14 instances), its
+     save_hits instance against its twin on the same 2**20-path room
+     chunk (the hit rows exactly, the [16, N] rows equal to the forward
+     instance's), times of both instances, each instance's rounds per
+     block against the schedule model's and the lane efficiency of one
+     path per thread beside the refilled pool's; then lab_mega's main:
+     both instances on the room and the big room, with 0 and 3 lights,
+     at 2**20 paths (times, bounds, lane efficiency, rounds against the
+     model, registers, and the no-refill and global-planes variants,
+     whose rows must equal the kernel's);
   7. the train step, the second main path, through the public entry
      point make_train_step(cfg, lr=1e-2, device="cuda") on the room at
      512x512 @16 spp d8 with a zero target, launch counters zeroed: one
@@ -104,6 +118,10 @@ LARGE = (4, 16, 32)        # 61,452 faces, 65,536 padded: the packet route
 # kernel C against its twin: (rays, half of them masked)
 TWIN_BATCHES = ((65536, False), (1037, False), (65536, True))
 MEGA_ATOL = 1e-5
+# kernel B's grid forced small in phase 3, so that each lane serves
+# several paths of a small batch
+REFILL_BLOCKS = 3
+RAGGED = 1037              # paths of a batch that leaves a pool partial
 GRAD_RTOL = 1e-5
 LR = 1e-2
 
@@ -190,40 +208,6 @@ def dense_work(n, fp):
     """(operations, bytes) of kernel A on n rays x fp slots: rays [N, 8]
     read, (t, slot, u, v) written, the planes read once."""
     return n * fp * (OPS_ORIGIN + OPS_DIRECTION), n * (32 + 16) + fp * 48
-
-
-def mega_work(hits, shadeT, depth, n_lights, save_hits):
-    """(operations, bytes) of kernel B on the paths whose residuals are
-    `hits` (from the save_hits instance on the same inputs: both
-    instances trace the same queries). Counted from this run's data: the
-    camera query of every lane, then per bounce on each live lane (hit,
-    not emissive) one origin transform per slot, the next-direction
-    query (not on the last bounce), the extra emitter query on diffuse
-    lanes, and each delta light: a full sweep where unoccluded, at least
-    one test where occluded (the sweep stops at its first occluder).
-    Bytes: rays8, u8d, planes and the shading rows read, [16, N] written
-    (and the [8 * depth, N] residuals with save_hits)."""
-    fp, n = shadeT.shape[1], hits.shape[1]
-    rows = hits.view(depth, 8, n)
-    slot = rows[:, 0].long()
-    s = slot.clamp_min(0)
-    live = (slot >= 0) & (shadeT[24][s] <= 0.0)
-    diffuse = ~((shadeT[25][s] >= 1.0) | (shadeT[26][s] > 0.0))
-    occ = rows[:, 5].long()
-    origins, directions = n * fp, n * fp              # the camera query
-    for dep in range(depth):
-        lv = live[dep]
-        origins += int(lv.sum()) * fp
-        directions += (int(lv.sum()) * (dep + 1 < depth)
-                       + int((lv & diffuse[dep]).sum())) * fp
-        for li in range(n_lights):
-            occluded = ((occ[dep] >> li) & 1) == 1
-            directions += (int((lv & ~occluded).sum()) * fp
-                           + int((lv & occluded).sum()))
-    nbytes = n * (32 + 32 * depth + 64) + fp * (48 + 128)
-    if save_hits:
-        nbytes += n * 32 * depth
-    return origins * OPS_ORIGIN + directions * OPS_DIRECTION, nbytes
 
 
 def packet_work(visits, pk):
@@ -590,6 +574,69 @@ def check_hits(out, hits, fwd_out, twin_out, twin_hits, what):
     return max(diff, check_mega(out, twin_out, what))
 
 
+def check_rounds(ops, n_lights, save_hits, lengths, what, blocks=0):
+    """Kernel B's rounds per block, counted by one launch of the instance
+    (on its own grid, or on `blocks`), against the plain schedule model's
+    on the paths' sweeps `lengths`. Returns (the launch's rows, rounds)."""
+    from tinypathtracer_tpu_torch.ops import mega
+
+    n, dev = ops[0].shape[1], ops[0].device
+    g = blocks or mega.mega_grid(n, n_lights, save_hits)
+    rounds = torch.zeros((g,), dtype=torch.int32, device=dev)
+    got = mega._mega_cuda(*ops, 8, n_lights, save_hits, rounds=rounds,
+                          blocks=blocks)
+    model = mega._mega_schedule(lengths.cpu(), g)[0]
+    check_equal([rounds.cpu()], [model],
+                f"kernel B's rounds vs the schedule model, {what}, "
+                f"save_hits={save_hits}, {g} blocks", ("rounds",))
+    return got, rounds
+
+
+def log_lanes(lengths, rounds, what):
+    """The lane efficiency of one path per thread (from the paths'
+    sweeps) and of kernel B's refilled pool (from its rounds)."""
+    from tinypathtracer_tpu_torch.tools import lab_mega
+
+    log(f"  kernel B's rounds per block = the schedule model's on all "
+        f"{rounds.shape[0]} blocks ({what}): mean "
+        f"{float(rounds.float().mean()):.2f}, max {int(rounds.max())}; "
+        f"sweeps per path {float(lengths.float().mean()):.3f}; lane "
+        f"efficiency one path per thread "
+        f"{lab_mega.thread_efficiency(lengths):.4f}, refilled pool "
+        f"{lab_mega.pool_efficiency(lengths, rounds):.4f}")
+
+
+def mega_vs_twin(ops, n_lights, what):
+    """Phase 3: kernel B, both instances, against its twin on one batch:
+    the [16, N] rows within MEGA_ATOL, the save_hits instance's hit rows
+    exactly and its [16, N] rows equal to the forward's; then both
+    instances on REFILL_BLOCKS blocks, where lanes take several paths
+    each: the rows equal to the kernel's own grid's and the rounds per
+    block to the schedule model's (and on the kernel's own grid too).
+    Returns the forward's and the save_hits instance's max abs error."""
+    from tinypathtracer_tpu_torch.ops import mega
+
+    fwd = mega.mega_trace(*ops, depth=8, n_lights=n_lights)
+    out, hits = mega.mega_trace(*ops, depth=8, n_lights=n_lights,
+                                save_hits=True)
+    want_out, want_hits = mega._mega_torch(*ops, depth=8, n_lights=n_lights,
+                                           save_hits=True)
+    torch.cuda.synchronize()
+    err_b = check_mega(fwd, want_out, what)
+    err_h = check_hits(out, hits, fwd, want_out, want_hits, what)
+    lengths = mega.path_lengths(want_hits, ops[3], 8)
+    for save in (False, True):
+        check_rounds(ops, n_lights, save, lengths, what)
+        got, rounds = check_rounds(ops, n_lights, save, lengths, what,
+                                   blocks=REFILL_BLOCKS)
+        check_equal(got if save else [got], (out, hits) if save else [fwd],
+                    f"kernel B on {REFILL_BLOCKS} blocks vs its own grid, "
+                    f"{what}, save_hits={save}",
+                    ("out", "hits") if save else ("out",))
+    log_lanes(lengths, rounds, f"{what}, {REFILL_BLOCKS} blocks")
+    return err_b, err_h
+
+
 def param_names(inv):
     return [f.name for f in dataclasses.fields(inv.Params)]
 
@@ -765,24 +812,6 @@ def compare_grads(T, scene, cfg, name):
         f"{g_all:.4e})")
     if abs(float(la) - float(lb)) > 1e-6 * abs(float(lb)):
         raise AssertionError(f"{name}: megakernel and modular losses differ")
-
-
-def with_lights(scene):
-    """The room with one point, one spot and one directional light."""
-    dev = scene.device
-    lights = dict(
-        light_kind=torch.tensor([0, 2, 1], dtype=torch.int32),
-        light_color=torch.tensor([[1.0, 0.9, 0.8], [0.5, 0.6, 1.0],
-                                  [1.0, 1.0, 1.0]]),
-        light_intensity=torch.tensor([4.0, 6.0, 0.7]),
-        light_pos=torch.tensor([[0.0, 3.5, 0.0], [2.0, 2.0, -2.0],
-                                [0.0, 0.0, 0.0]]),
-        light_dir=torch.tensor([[0.0, -1.0, 0.0], [-0.5, -0.7071, 0.5],
-                                [0.3015, -0.9045, 0.3015]]),
-        light_cos_outer=torch.tensor([0.0, 0.8, 0.0]),
-        light_inv_cone=torch.tensor([0.0, 5.0, 0.0]))
-    return dataclasses.replace(
-        scene, **{k: v.to(dev) for k, v in lights.items()})
 
 
 def mega_frame_operands(scene, cfg, key, n_pix=None):
@@ -1019,12 +1048,13 @@ def main():
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    from tinypathtracer_tpu_torch.tools import lab4, lab5_diag
+    from tinypathtracer_tpu_torch.tools import lab4, lab5_diag, lab_mega
     from tinypathtracer_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
     cuda_build.build_libraries(["dense", "mega", "packet", "lab4",
-                                "lab5_diag"])
+                                "lab5_diag",
+                                ("mega", lab_mega.GLOBAL_PLANES)])
     for mod in (dense, mega, packet, lab4, lab5_diag):
         mod._lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
@@ -1056,15 +1086,20 @@ def main():
 
     # ---- 3. kernel B vs its plain twin ------------------------------------
     small = T.RenderConfig(width=64, height=64, spp=4, max_depth=8)
-    err_b = 0.0
-    for name, scene in (("room", room), ("room+3 lights", with_lights(room))):
-        ops, state = mega_frame_operands(scene, small, T.prng_key(1, dev))
-        n_lights = state.data.n_lights
-        got = mega.mega_trace(*ops, depth=small.max_depth, n_lights=n_lights)
-        want = mega._mega_torch(*ops, depth=small.max_depth,
-                                n_lights=n_lights)
-        torch.cuda.synchronize()
-        err_b = max(err_b, check_mega(got, want, f"{name}, {got.shape[1]}"))
+    err_b = err_h = 0.0
+    big_dev = T.sphere_grid_scene(*BIG_ROOM, env_radiance=sky, device=dev)
+    for name, scene in (("room", room),
+                        ("room+3 lights", lab_mega.with_lights(room)),
+                        ("big room", big_dev),
+                        ("big room+3 lights", lab_mega.with_lights(big_dev))):
+        full, state = mega_frame_operands(scene, small, T.prng_key(1, dev))
+        ragged = (full[0][:, :RAGGED].contiguous(),
+                  full[1][:, :RAGGED].contiguous()) + full[2:]
+        for ops in (full, ragged):
+            e_b, e_h = mega_vs_twin(ops, state.data.n_lights,
+                                    f"{name}, {ops[0].shape[1]}")
+            err_b, err_h = max(err_b, e_b), max(err_h, e_h)
+    del big_dev
 
     # ---- 4. the main path -------------------------------------------------
     cfg = T.RenderConfig(width=512, height=512, spp=16, max_depth=8)
@@ -1151,7 +1186,7 @@ def main():
     del big_ops, big_state, got, want
 
     # ---- 6. kernel B's save_hits instance vs its twin ----------------------
-    for n_lights in (0, 3):
+    for n_lights in range(mega.MAX_LIGHTS + 1):
         for save_hits in (False, True):
             regs, spill = mega.kernel_resources(n_lights, save_hits)
             log(f"kernel B instance lights={n_lights} save_hits={save_hits}: "
@@ -1160,22 +1195,17 @@ def main():
         *ops, depth=8, n_lights=0, save_hits=True), 5)
     h_plain, (_, want_hits) = cuda_ms(lambda: mega._mega_torch(
         *ops, depth=8, n_lights=0, save_hits=True), 1, warm=False)
-    err_h = check_hits(h_out, h_hits, room_out, room_want, want_hits,
-                       f"room, {h_hits.shape[1]}")
+    err_h = max(err_h, check_hits(h_out, h_hits, room_out, room_want,
+                                  want_hits, f"room, {h_hits.shape[1]}"))
     log(f"kernel B save_hits, {h_hits.shape[1]} paths d8: {h_ms:.2f} ms "
         f"(forward instance {b_ms:.2f} ms, plain twin {h_plain:.1f} ms)")
-    for name, scene in (("room", room), ("room+3 lights", with_lights(room))):
-        s_ops, state = mega_frame_operands(scene, small, T.prng_key(1, dev))
-        n_l = state.data.n_lights
-        fwd = mega.mega_trace(*s_ops, depth=8, n_lights=n_l)
-        out, hits = mega.mega_trace(*s_ops, depth=8, n_lights=n_l,
-                                    save_hits=True)
-        want_out, want_h = mega._mega_torch(*s_ops, depth=8, n_lights=n_l,
-                                            save_hits=True)
-        err_h = max(err_h, check_hits(out, hits, fwd, want_out, want_h,
-                                      f"{name}, {hits.shape[1]}"))
-    ops_b, bytes_b = mega_work(h_hits, ops[3], 8, 0, save_hits=False)
-    ops_h, bytes_h = mega_work(h_hits, ops[3], 8, 0, save_hits=True)
+    lengths = mega.path_lengths(h_hits, ops[3], 8)
+    for save in (False, True):
+        _, rounds = check_rounds(ops, 0, save, lengths,
+                                 f"room, {h_hits.shape[1]}")
+    log_lanes(lengths, rounds, f"room, {h_hits.shape[1]} paths")
+    ops_b, bytes_b = lab_mega.mega_work(h_hits, ops[3], 8, 0, save_hits=False)
+    ops_h, bytes_h = lab_mega.mega_work(h_hits, ops[3], 8, 0, save_hits=True)
     ops_a, bytes_a = dense_work(rays.shape[0], woop.n_padded)
     bounds = {"dense": bound(ops_a, bytes_a), "mega": bound(ops_b, bytes_b),
               "mega_save_hits": bound(ops_h, bytes_h)}
@@ -1184,12 +1214,17 @@ def main():
         f"{bytes_b / 1e6:.1f} MB (save_hits {bytes_h / 1e6:.1f} MB); "
         f"bounds {bounds}")
     del ops, rays, h_out, h_hits, want_hits, room_out, room_want
+    # kernel B by scene, lights and instance: times, bounds, lane
+    # efficiency, registers, the counted rounds against the model, and the
+    # no-refill and global-planes variants
+    run_main("lab_mega main", lab_mega.main, [])
 
     # ---- 7. the train step at full width -----------------------------------
     train_launches = train_phase(T, cfg, host_room)
 
     # ---- 8. megakernel vs modular gradients on the card --------------------
-    for name, scene in (("room", room), ("room+3 lights", with_lights(room))):
+    for name, scene in (("room", room),
+                        ("room+3 lights", lab_mega.with_lights(room))):
         compare_grads(T, scene, small, name)
 
     # ---- 9-12. the packet traversal and the large scene ---------------

@@ -31,7 +31,7 @@ from tinypathtracer_tpu.tools import lab5 as jlab5
 from tinypathtracer_tpu.tools import lab5_diag as jdiag
 from tinypathtracer_tpu_torch.ops import dense
 from tinypathtracer_tpu_torch.tools import (kernel_lab, lab4, lab5, lab5_diag,
-                                            lab6, profile_stages)
+                                            lab6, lab_mega, profile_stages)
 
 from _torch_scenes import jax_scene, port_scene
 
@@ -233,6 +233,7 @@ MAINS = {
     "lab5_diag": (lab5_diag, ["--n", "256", "--n-lat", "10", "--n-lon", "16"],
                   [f"{v}_{s}" for v in lab5_diag.VARIANTS
                    for s in ("ms", "ns_per_packet")]),
+    "lab_mega": (lab_mega, ["--n", "64", "--scenes", "room"], ["n"]),
     "lab6": (lab6, ["--n", "256", "--width", "16", "--height", "16",
                     "--spp", "1", "--depth", "3"],
              ["mega_fwd_ms", "mega_save_ms", "replay_fwd_ms",
@@ -264,3 +265,15 @@ def test_lab_main_runs_on_the_cpu(name, capsys):
             assert 0 < cell[f"{mode}.visits_mean"] <= cell[
                 f"{mode}.chunks_total"]
         assert json.loads(out[out.index("{"):])["room(1804f)"] == cell
+    if name == "lab_mega":
+        for lights in (0, 3):
+            cell = res[f"room.lights{lights}"]
+            for k in ("fwd_ms", "save_hits_ms", "fwd_bound_ms",
+                      "save_hits_bound_ms", "eff_thread", "eff_pool",
+                      "eff_no_refill", "rounds_mean", "sweeps_per_path"):
+                assert np.isfinite(cell[k]) and cell[k] > 0, k
+            assert 0 <= cell["tile_skip_share"] < 1
+            assert cell["fwd_regs"] is None and cell["blocks"] == 1
+            assert 0 < cell["eff_pool"] <= 1 and 1 <= cell["rounds_max"] <= 9
+        assert (res["room.lights3"]["fwd_bound_ms"]
+                > res["room.lights0"]["fwd_bound_ms"])

@@ -185,3 +185,123 @@ def test_bad_operands_raise():
         mega.mega_trace(torch.from_numpy(rays8), torch.from_numpy(u8d),
                         torch.zeros((128, 12)), torch.zeros((32, 128)),
                         torch.zeros((1, 16)), depth=3, n_lights=0)
+
+
+# ---- kernel B's schedule: the plain model of its refilled lanes ----------
+
+def _slow_schedule(lengths, blocks, threads):
+    """The refill rule written lane by lane: each round, free lanes take
+    the next paths of their block's pool (b, b + blocks, ...) in lane
+    order, then every lane that holds a path sweeps once."""
+    n = len(lengths)
+    rounds, lane, start = [], [-1] * n, [-1] * n
+    for b in range(blocks):
+        pool, taken, r = list(range(b, n, blocks)), 0, 0
+        left = [0] * threads
+        while True:
+            for ln in range(threads):
+                if left[ln] == 0 and taken < len(pool):
+                    p = pool[taken]
+                    taken += 1
+                    left[ln], lane[p], start[p] = lengths[p], b * threads + ln, r
+            if not any(left):
+                break
+            left = [x - 1 if x else 0 for x in left]
+            r += 1
+        rounds.append(r)
+    return rounds, lane, start
+
+
+@pytest.fixture(scope="module")
+def room_lengths():
+    """Each path's sweeps (`path_lengths`) from the twin's residuals: 512
+    paths at depth 8 in the lit room."""
+    data = TraceData.from_scene(port_scene(jax_scene(lights=True)))
+    planesT, shadeT = mega._scene_blocks(data, precompute_woop(
+        data.tri_verts))
+    rays8, u8d = _inputs(8, seed=5)
+    rays8 = np.concatenate([rays8, rays8], axis=1)
+    u8d = np.concatenate([u8d, u8d[:, ::-1]], axis=1)
+    _, hits = mega.mega_trace(torch.from_numpy(rays8),
+                              torch.from_numpy(np.ascontiguousarray(u8d)),
+                              planesT, shadeT, lights_block(data), depth=8,
+                              n_lights=data.n_lights, save_hits=True)
+    lengths = mega.path_lengths(hits, shadeT, 8)
+    rows = hits.view(8, 8, -1)
+    slot = rows[:, 0].long()
+    live = (slot >= 0) & (shadeT[24][slot.clamp_min(0)] <= 0)
+    # a path's live bounces come first, then it ends
+    assert (live[1:] <= live[:-1]).all()
+    assert torch.equal(lengths, 1 + live.sum(dim=0))
+    assert int(lengths.min()) >= 1 and int(lengths.max()) <= 9
+    assert lengths.float().std() > 0.5           # short and long paths
+    return lengths
+
+
+@pytest.mark.parametrize("blocks,threads", [(1, 32), (3, 32), (5, 64),
+                                            (16, 32)])
+def test_schedule_serves_every_path_once_in_order(room_lengths, blocks,
+                                                  threads):
+    """Every path is served once, by one lane, for its sweeps in a row
+    (its bounces in order); a lane's paths follow each other without a
+    gap, in pool order; the model equals the lane-by-lane rule."""
+    lengths = room_lengths
+    rounds, lane, start = mega._mega_schedule(lengths, blocks, threads)
+    want = _slow_schedule(lengths.tolist(), blocks, threads)
+    assert rounds.tolist() == want[0]
+    assert lane.tolist() == want[1] and start.tolist() == want[2]
+    n = lengths.shape[0]
+    assert (lane >= 0).all() and (start >= 0).all()
+    assert torch.equal(lane // threads, torch.arange(n) % blocks)
+    for ln in lane.unique():
+        paths = (lane == ln).nonzero()[:, 0]
+        order = start[paths].argsort()
+        p, s = paths[order], start[paths][order]
+        ends = s + lengths[p]
+        assert torch.equal(s[1:], ends[:-1])     # no gap, no overlap
+        assert s[0] == 0 and bool((p[1:] > p[:-1]).all())
+        assert int(ends[-1]) <= int(rounds[ln // threads])
+
+
+@pytest.mark.parametrize("blocks,threads", [(1, 32), (3, 32), (16, 32)])
+def test_schedule_rounds_between_longest_path_and_sum(room_lengths, blocks,
+                                                      threads):
+    """A block sweeps at least as often as its longest path and at most
+    as often as all its paths together; with one lane a path it sweeps as
+    often as its longest."""
+    lengths = room_lengths
+    rounds = mega._mega_schedule(lengths, blocks, threads)[0]
+    for b in range(blocks):
+        own = lengths[b::blocks]
+        assert int(own.max()) <= int(rounds[b]) <= int(own.sum())
+        assert int(rounds[b]) >= -(-int(own.sum()) // threads)
+    wide = mega._mega_schedule(lengths, blocks, lengths.shape[0])[0]
+    assert wide.tolist() == [int(lengths[b::blocks].max())
+                             for b in range(blocks)]
+
+
+def test_schedule_is_deterministic_under_a_reshuffled_pool(room_lengths):
+    """The model is a function of the pool's order alone: the same pool
+    twice gives the same schedule, a reshuffled pool the lane-by-lane
+    rule's schedule for that order, and every path is still served."""
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(
+        room_lengths.shape[0]))
+    shuffled = room_lengths[perm]
+    first = mega._mega_schedule(shuffled, 3, 32)
+    again = mega._mega_schedule(shuffled.clone(), 3, 32)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    want = _slow_schedule(shuffled.tolist(), 3, 32)
+    assert first[0].tolist() == want[0] and first[1].tolist() == want[1]
+    assert (first[1] >= 0).all()
+    assert int(first[0].sum()) * 32 >= int(shuffled.sum())
+
+
+def test_rounds_are_counted_on_the_card_only():
+    rays8, u8d = _inputs(2, seed=0)
+    data = TraceData.from_scene(port_scene(jax_scene()))
+    planesT, shadeT = mega._scene_blocks(data, precompute_woop(
+        data.tri_verts))
+    with pytest.raises(ValueError, match="rounds"):
+        mega.mega_trace(torch.from_numpy(rays8), torch.from_numpy(u8d),
+                        planesT, shadeT, lights_block(data), depth=2,
+                        n_lights=0, rounds=torch.zeros(1, dtype=torch.int32))

@@ -39,6 +39,17 @@ __device__ __forceinline__ void load_planes(const float* __restrict__ src,
   w[8] = c.x; w[9] = c.y; w[10] = c.z; w[11] = c.w;
 }
 
+// The same from shared memory (16-byte aligned): three 16-byte loads, a
+// broadcast where every thread of a warp reads the same slot.
+__device__ __forceinline__ void load_planes_shared(const float* src,
+                                                   float w[12]) {
+  const float4* p = reinterpret_cast<const float4*>(src);
+  const float4 a = p[0], b = p[1], c = p[2];
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  w[8] = c.x; w[9] = c.y; w[10] = c.z; w[11] = c.w;
+}
+
 // o' = W o + c: computed once per (origin, triangle), shared by every
 // direction leaving that origin.
 struct Origin {

@@ -18,6 +18,10 @@ inputs and outputs (the JAX package's [K, N] layouts), same arithmetic.
 It shades each bounce with the modular path's own helpers
 (`render.integrator.scatter` and `end_bounce`) and differs from it only
 in how it queries hits. `mega_trace` dispatches on the tensors' device.
+Kernel B runs persistent blocks of MEGA_THREADS lanes, each lane taking
+the next path of its block's pool when its path ends; `_mega_schedule`
+is the plain model of that schedule (the sweeps each block runs, from
+each path's `path_lengths`), which chip_smoke.py holds the kernel to.
 
 With `save_hits` the kernel also records per-bounce hit residuals
 (`unpack_hits` turns them into the integrator's stored-hit layout).
@@ -52,6 +56,7 @@ from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
 
 MEGA_MAX_FACES = 8192
 MAX_LIGHTS = 6
+MEGA_THREADS = 256      # lanes of a block of kernel B
 # shadeT row map (rows of the [32, Fp] fused table): rows 12-26 are the
 # 15 shade_packT rows (corner normals, base color, emission, eta,
 # metallic)
@@ -168,15 +173,76 @@ def _mega_torch(rays8, u8d, planesT, shadeT, lights, depth: int,
     return (out, hits) if save_hits else out
 
 
+def path_lengths(hits, shadeT, depth: int):
+    """The sweeps each path needs, from its [8*depth, N] hit residuals:
+    its camera query, then one per live bounce (hit, not emissive).
+    int64 [N], each in 1..depth + 1."""
+    slot = hits.view(depth, 8, -1)[:, 0].long()
+    live = (slot >= 0) & (shadeT[_ROW_EM][slot.clamp_min(0)] <= 0.0)
+    return 1 + live.sum(dim=0)
+
+
+def _mega_schedule(lengths, blocks: int, threads: int = MEGA_THREADS):
+    """Plain model of kernel B's schedule, for the tests and chip_smoke.py
+    only: no route calls it. Block b of `blocks` holds the pool of paths
+    b, b + blocks, b + 2 blocks, ...; each round, lanes whose path has
+    ended take the next paths of the pool in lane order, then every lane
+    that holds a path sweeps once; a path holds its lane for
+    lengths[path] rounds in a row (`path_lengths`). A block ends when its
+    pool is spent and no lane holds a path.
+
+    Returns (rounds int32 [blocks], the sweeps each block ran; lane int64
+    [N], block * threads + the lane that ran each path; start int64 [N],
+    the round of the block in which each path started)."""
+    n, dev = lengths.shape[0], lengths.device
+    length = lengths.long()
+    ids = torch.arange(blocks, device=dev)
+    pool = (n - ids + blocks - 1) // blocks
+    left = torch.zeros((blocks, threads), dtype=torch.int64, device=dev)
+    lane_id = torch.arange(blocks * threads, device=dev).view(blocks, threads)
+    taken = torch.zeros_like(ids)
+    rounds = torch.zeros((blocks,), dtype=torch.int32, device=dev)
+    lane = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    start = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    r = 0
+    while True:
+        free = left == 0
+        rank = free.long().cumsum(dim=1) - 1
+        take = torch.minimum(free.sum(dim=1), pool - taken)
+        got = free & (rank < take[:, None])
+        path = (ids[:, None] + (taken[:, None] + rank) * blocks)[got]
+        left[got] = length[path]
+        lane[path] = lane_id[got]
+        start[path] = r
+        taken += take
+        busy = left > 0
+        running = busy.any(dim=1)
+        if not bool(running.any()):
+            break
+        rounds += running.int()
+        left -= busy.long()
+        r += 1
+    return rounds, lane, start
+
+
 @functools.cache
-def _lib():
-    lib = cuda_build.load_library("mega")
-    lib.tpt_mega_trace.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 3
+def _lib(defines=()):
+    """Kernel B's library; `defines` builds a lab variant
+    (tools/lab_mega.py)."""
+    lib = cuda_build.load_library("mega", defines)
+    lib.tpt_mega_trace.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p] * 4
     lib.tpt_mega_trace.restype = ctypes.c_int
+    lib.tpt_mega_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.tpt_mega_grid.restype = ctypes.c_int
     lib.tpt_mega_resources.argtypes = [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p, ctypes.c_void_p]
     lib.tpt_mega_resources.restype = ctypes.c_int
+    lib.tpt_mega_threads.argtypes = []
+    lib.tpt_mega_threads.restype = ctypes.c_int
+    if lib.tpt_mega_threads() != MEGA_THREADS:
+        raise RuntimeError(f"csrc/mega.cu runs {lib.tpt_mega_threads()} "
+                           f"lanes a block, MEGA_THREADS is {MEGA_THREADS}")
     return lib
 
 
@@ -190,21 +256,45 @@ def kernel_resources(n_lights: int, save_hits: bool):
     return regs.value, local.value
 
 
+def mega_grid(n: int, n_lights: int, save_hits: bool = False) -> int:
+    """The blocks kernel B launches for n paths: as many as the card's
+    SMs hold at once (from the instance's occupancy), at most one per
+    MEGA_THREADS paths."""
+    blocks = ctypes.c_int()
+    status = _lib().tpt_mega_grid(n, n_lights, int(save_hits),
+                                  ctypes.byref(blocks))
+    cuda_build.check_launch(status, "mega_grid")
+    return blocks.value
+
+
 def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
-               n_lights: int, save_hits: bool):
+               n_lights: int, save_hits: bool, rounds=None, blocks: int = 0,
+               defines=()):
+    """Kernel B. With `rounds` (int32 [blocks] on the rays' device, blocks
+    = mega_grid(N, ...) unless given) it also writes the sweeps each block
+    ran; the route passes none. `blocks` in 1..N overrides the grid: N /
+    MEGA_THREADS blocks or more give each lane one path, no refill;
+    `defines` runs a variant build (both for tools/lab_mega.py)."""
     shade_rows = shadeT.T.contiguous()                   # [Fp, 32] face-major
     cuda_build.check_operands(rays8, u8d, planesT, shade_rows, lights)
-    n, fp = rays8.shape[1], planesT.shape[0]
-    out = torch.empty((16, n), dtype=torch.float32, device=rays8.device)
-    hits = (torch.empty((8 * depth, n), dtype=torch.float32,
-                        device=rays8.device) if save_hits else None)
+    n, fp, dev = rays8.shape[1], planesT.shape[0], rays8.device
+    out = torch.empty((16, n), dtype=torch.float32, device=dev)
+    hits = (torch.empty((8 * depth, n), dtype=torch.float32, device=dev)
+            if save_hits else None)
     if n == 0:
         return (out, hits) if save_hits else out
-    status = _lib().tpt_mega_trace(
+    if rounds is not None:
+        g = blocks if blocks > 0 else mega_grid(n, n_lights, save_hits)
+        if not (rounds.dtype == torch.int32 and rounds.device == dev
+                and rounds.is_contiguous() and rounds.shape == (g,)):
+            raise ValueError(f"rounds must be a contiguous int32 tensor of "
+                             f"{g} on {dev}")
+    status = _lib(defines).tpt_mega_trace(
         rays8.data_ptr(), u8d.data_ptr(), planesT.data_ptr(),
         shade_rows.data_ptr(), lights.data_ptr(), n, fp, depth, n_lights,
-        out.data_ptr(), hits.data_ptr() if save_hits else None,
-        cuda_build.stream_ptr(rays8.device))
+        blocks, out.data_ptr(), hits.data_ptr() if save_hits else None,
+        None if rounds is None else rounds.data_ptr(),
+        cuda_build.stream_ptr(dev))
     cuda_build.check_launch(status, "mega_trace")
     if save_hits:
         mega_trace.launches_save_hits += 1
@@ -214,16 +304,22 @@ def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
 
 
 def mega_trace(rays8, u8d, planesT, shadeT, lights, depth: int,
-               n_lights: int, save_hits: bool = False):
+               n_lights: int, save_hits: bool = False, rounds=None):
     """Trace paths to completion: kernel B on CUDA tensors, its plain
     twin on CPU tensors. Returns out, or (out, hits) with save_hits. See
-    `_mega_torch` for the layouts. Launches are counted per instance:
+    `_mega_torch` for the layouts. With `rounds` (int32 [mega_grid(N,
+    n_lights, save_hits)] on the card) kernel B also writes the sweeps
+    each of its blocks ran (`_mega_schedule` models them); the twin has
+    no blocks and refuses it. Launches are counted per instance:
     `mega_trace.launches` (forward) and `mega_trace.launches_save_hits`."""
     _check_mega_args(rays8, u8d, planesT, shadeT, lights, depth, n_lights)
     if rays8.device.type == "cuda":
         return _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth,
-                          n_lights, save_hits)
+                          n_lights, save_hits, rounds)
     if rays8.device.type == "cpu":
+        if rounds is not None:
+            raise ValueError("rounds are counted by kernel B only: the "
+                             "plain twin runs no blocks")
         return _mega_torch(rays8, u8d, planesT, shadeT, lights, depth,
                            n_lights, save_hits)
     raise ValueError(f"mega_trace has no kernel for device {rays8.device}")

@@ -16,6 +16,19 @@ import torch
 from tinypathtracer_tpu_torch.render.renderer import resolve_device
 
 
+# H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the tensor
+# cores, and HBM3; the rooflines of a lab's bound (as chip_smoke.py's)
+FP32_PEAK = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(ops, nbytes):
+    """(least time in ms, "operations" or "bytes"): the larger of the
+    two rooflines."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def parser(doc: str) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
