@@ -7,8 +7,7 @@ one NVIDIA GPU.
 Phases (each ends in torch.cuda.synchronize(); any failure exits
 non-zero):
   1. the card, the versions, and the build of the six CUDA kernels
-     (five sources and lab_mega's variant of kernel B, one nvcc each, all
-     at once) from this checkout;
+     (five sources, one nvcc each, all at once) from this checkout;
   2. kernel A (dense closest hit) against its plain PyTorch twin on the
      card: 65,536 rays from inside the 1,804-face room plus a ragged
      batch; (slot, t, u, v) must be exactly equal;
@@ -40,8 +39,8 @@ non-zero):
      path per thread beside the refilled pool's; then lab_mega's main:
      both instances on the room and the big room, with 0 and 3 lights,
      at 2**20 paths (times, bounds, lane efficiency, rounds against the
-     model, registers, and the no-refill and global-planes variants,
-     whose rows must equal the kernel's);
+     model, registers, and the no-refill grid, whose rows must equal the
+     kernel's);
   7. the train step, the second main path, through the public entry
      point make_train_step(cfg, lr=1e-2, device="cuda") on the room at
      512x512 @16 spp d8 with a zero target, launch counters zeroed: one
@@ -125,19 +124,8 @@ RAGGED = 1037              # paths of a batch that leaves a pool partial
 GRAD_RTOL = 1e-5
 LR = 1e-2
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor
-# cores, and HBM3
-FP32_PEAK = 67e12
-TF32_PEAK = 495e12           # dense, on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-# fp32 operations of the hit test (csrc/hit.cuh), a fused multiply-add
-# counted as 2 and the IEEE divide as 1 (the least it can cost; the
-# compiler's divide is a sequence of ~10 instructions), comparisons not
-# counted: o' = W o + c is 3 x (1 mul + 2 FMA) + 3 adds = 18 per
-# (origin, triangle); a direction against it is d' = W d (15), t (1),
-# u and v (2 FMA = 4), u + v (1) = 21 per (direction, triangle)
-OPS_ORIGIN = 18
-OPS_DIRECTION = 21
+# The peaks, the bound and the hit test's operation counts (OPS_ORIGIN,
+# OPS_DIRECTION) are tools/common.py's.
 # fp32 operations of a slab test of one ray against one chunk box
 # (csrc/packet.cu enter_box; the boxes come widened): 6 subtractions, 6
 # multiplies (min, max and comparisons not counted); and per live ray 3
@@ -198,16 +186,24 @@ def cuda_ms(fn, reps, warm=True):
 
 
 def bound(ops, nbytes):
-    """(least time in ms, "operations" or "bytes"): the larger of the
-    two rooflines."""
-    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """tools/common.bound: (least time in ms, "operations" or "bytes")."""
+    from tinypathtracer_tpu_torch.tools import common
+
+    return common.bound(ops, nbytes)
+
+
+def pair_ops():
+    """fp32 operations of one (ray, triangle) pair test
+    (tools/common.py)."""
+    from tinypathtracer_tpu_torch.tools import common
+
+    return common.OPS_ORIGIN + common.OPS_DIRECTION
 
 
 def dense_work(n, fp):
     """(operations, bytes) of kernel A on n rays x fp slots: rays [N, 8]
     read, (t, slot, u, v) written, the planes read once."""
-    return n * fp * (OPS_ORIGIN + OPS_DIRECTION), n * (32 + 16) + fp * 48
+    return n * fp * pair_ops(), n * (32 + 16) + fp * 48
 
 
 def packet_work(visits, pk):
@@ -217,7 +213,7 @@ def packet_work(visits, pk):
     reciprocals. Bytes: rays [N, 8] read, (t, slot, u, v, visits)
     written, the planes and the boxes read once."""
     live = int((visits > 0).sum())
-    ops = (int(visits.sum()) * pk.tc * (OPS_ORIGIN + OPS_DIRECTION)
+    ops = (int(visits.sum()) * pk.tc * pair_ops()
            + live * (pk.n_chunks * OPS_SLAB + OPS_RECIPROCALS))
     nbytes = (visits.shape[0] * (32 + 20) + pk.woop.n_padded * 48
               + pk.n_chunks * 32)
@@ -840,15 +836,16 @@ def lab4_work(n, fp, precision):
     "highest", 1 for "default"; None: fp32 on the CUDA cores, kernel E),
     the rest on the CUDA cores; rays8 and the planes read once, (t, fid)
     written."""
+    from tinypathtracer_tpu_torch.tools import common
+
     pairs = n * fp
     nbytes = n * (32 + 8) + fp * 48
     if precision is None:
-        return bound(pairs * (OPS_ORIGIN + OPS_DIRECTION), nbytes)
+        return bound(pairs * pair_ops(), nbytes)
     passes = 3 if precision == "highest" else 1
-    t_mma = pairs * OPS_TRANSFORM * passes / TF32_PEAK * 1e3
-    t_fp32 = pairs * (OPS_ORIGIN + OPS_DIRECTION - OPS_TRANSFORM) \
-        / FP32_PEAK * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_mma = pairs * OPS_TRANSFORM * passes / common.TF32_PEAK * 1e3
+    t_fp32 = pairs * (pair_ops() - OPS_TRANSFORM) / common.FP32_PEAK * 1e3
+    t_bytes = nbytes / common.HBM_BYTES_PER_S * 1e3
     best = max(t_mma, t_fp32, t_bytes)
     return best, "bytes" if best == t_bytes else "operations"
 
@@ -948,8 +945,7 @@ def diag_phase(T, dev):
     r = rays.view(-1, diag.PACKET, 8)
     _, visits = diag.walk(r, planes, diag._keys(r, boxes)[2])
     c, cp = planes.shape[0] // diag.ROWS, boxes.shape[1]
-    ops = (int(visits.sum()) * diag.PACKET * diag.CHUNK
-           * (OPS_ORIGIN + OPS_DIRECTION)
+    ops = (int(visits.sum()) * diag.PACKET * diag.CHUNK * pair_ops()
            + n * (cp * OPS_SLAB + OPS_RECIPROCALS))
     nbytes = n * (32 + 4) + c * diag.ROWS * diag.CHUNK * 4 + cp * 32
     log(f"kernel F walk: {float(visits.float().mean()):.3f} chunk visits per "
@@ -1053,8 +1049,7 @@ def main():
 
     t0 = time.perf_counter()
     cuda_build.build_libraries(["dense", "mega", "packet", "lab4",
-                                "lab5_diag",
-                                ("mega", lab_mega.GLOBAL_PLANES)])
+                                "lab5_diag"])
     for mod in (dense, mega, packet, lab4, lab5_diag):
         mod._lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
@@ -1216,7 +1211,7 @@ def main():
     del ops, rays, h_out, h_hits, want_hits, room_out, room_want
     # kernel B by scene, lights and instance: times, bounds, lane
     # efficiency, registers, the counted rounds against the model, and the
-    # no-refill and global-planes variants
+    # no-refill grid
     run_main("lab_mega main", lab_mega.main, [])
 
     # ---- 7. the train step at full width -----------------------------------

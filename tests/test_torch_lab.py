@@ -277,3 +277,43 @@ def test_lab_main_runs_on_the_cpu(name, capsys):
             assert 0 < cell["eff_pool"] <= 1 and 1 <= cell["rounds_max"] <= 9
         assert (res["room.lights3"]["fwd_bound_ms"]
                 > res["room.lights0"]["fwd_bound_ms"])
+
+
+def test_lab_mega_variants_edit_the_kernel_source():
+    """Every variant lab_mega --variants builds edits text that
+    csrc/mega.cu holds exactly once; --variants refuses the CPU."""
+    from tinypathtracer_tpu_torch.utils import cuda_build
+
+    src = (cuda_build.CSRC / "mega.cu").read_text()
+    for name, edits in lab_mega.VARIANTS.items():
+        text = src
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert text != src, name
+    with pytest.raises(ValueError, match="card only"):
+        lab_mega.main(["--device", "cpu", "--variants"])
+
+
+@pytest.mark.parametrize("n,blocks", [(1024, 8), (96, 96), (60, 1)])
+def test_lab_mega_split_perm_maps_pools(n, blocks):
+    """The scatter split's permutation puts the interleaved pool of
+    block b (paths b, b + blocks, ...) in the contiguous pool of block
+    b, in order, and serves every path once."""
+    perm = lab_mega.split_perm(n, blocks, torch.device("cpu"))
+    span = n // blocks
+    assert sorted(perm.tolist()) == list(range(n))
+    for b in range(blocks):
+        assert perm[b * span:(b + 1) * span].tolist() == list(
+            range(b, n, blocks))
+
+
+@pytest.mark.parametrize("count", [0, 1, 2, 3])
+def test_lab_mega_with_lights_takes_the_first(count):
+    """with_lights(scene, count) adds the first `count` of its three
+    lights."""
+    from tinypathtracer_tpu_torch.models.procedural import sphere_grid_scene
+
+    scene = lab_mega.with_lights(sphere_grid_scene(1, 4, 6), count)
+    assert scene.light_kind.tolist() == [0, 2, 1][:count]
+    assert tuple(scene.light_pos.shape) == (count, 3)

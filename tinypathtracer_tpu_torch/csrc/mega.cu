@@ -192,14 +192,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;     // slots of a staged tile
 constexpr int kStages = 4;     // tile buffers of the ring
 constexpr unsigned kFull = 0xffffffffu;
-#ifdef TPT_MEGA_GLOBAL_PLANES
-// lab variant (tools/lab_mega.py): the sweep reads the planes from global
-// memory with __ldg broadcasts (as kernel A does), with no ring
-constexpr bool kStaged = false;
-#else
-constexpr bool kStaged = true;
-#endif
-constexpr size_t kRingBytes = kStaged ? kStages * kTile * 48 : 0;
+constexpr size_t kRingBytes = kStages * kTile * 48;
 
 // Blocks an SM each instance is built for (__launch_bounds__): four (at
 // most 64 registers a thread) while up to two lights' directions fit
@@ -301,20 +294,16 @@ __device__ __forceinline__ void sweep(const float* __restrict__ planes,
   for (int li = 0; li < kLights; ++li) active = active || !occluded[li];
   float best_a = tpt::kRealMax, best_b = tpt::kRealMax;
   int arg_a = -1, arg_b = -1;
-  const bool ring = kStaged && nt > kStages;  // else resident or global
+  const bool ring = nt > kStages;  // else resident
   for (int t = 0; t < nt; ++t) {
     const int s = ring ? static_cast<int>(g % kStages) : t;
     if (ring) wait_phase(bars + s, (g / kStages) & 1u);
     const int f0 = t * kTile, cnt = min(kTile, fp - f0);
-    const float* src = kStaged ? tile_buffer(s)
-                               : planes + 12 * static_cast<size_t>(f0);
+    const float* src = tile_buffer(s);
     if (active) {
       for (int k = 0; k < cnt; ++k) {
         float w[12];
-        if (kStaged)
-          tpt::load_planes_shared(src + 12 * k, w);
-        else
-          tpt::load_planes(src + 12 * k, w);
+        tpt::load_planes_shared(src + 12 * k, w);
         const tpt::Origin op = tpt::origin_terms(ox, oy, oz, w);
         float th, u, v;
         if (need_a && tpt::hit_terms(op, da[0], da[1], da[2], w, th, u, v) &&
@@ -346,6 +335,16 @@ __device__ __forceinline__ void sweep(const float* __restrict__ planes,
   }
   slot_a = arg_a;
   slot_b = arg_b;
+}
+
+// Block b of g holds the pool of paths b, b + g, b + 2g, ... of the n:
+// every block gets a like share of the frame's long and short paths. The
+// pool's size, and the path of its k-th entry.
+__device__ __forceinline__ int pool_size(int n, int b, int g) {
+  return (n - b + g - 1) / g;
+}
+__device__ __forceinline__ int pool_path(int n, int b, int g, int k) {
+  return b + k * g;
 }
 
 // Residual rows k0 .. k0 + kCount - 1 of one bounce (column `path` of
@@ -380,13 +379,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLights))
   for (int k = tid; k < kLights * 16; k += kThreads) s_lights[k] = lights[k];
   const int nt = (fp + kTile - 1) / kTile;
   unsigned g = 0;  // the ring's next tile of the sequence
-  if (kStaged)
-    start_ring(planes, fp, nt, s_bar);
-  else
-    __syncthreads();
+  start_ring(planes, fp, nt, s_bar);
 
   const int blocks = gridDim.x;
-  const int pool = (n - static_cast<int>(blockIdx.x) + blocks - 1) / blocks;
+  const int pool = pool_size(n, blockIdx.x, blocks);
   int taken = 0, rounds = 0;
 
   // the lane's path: -1 none; its next bounce (-1: the camera query is in
@@ -519,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLights))
     if (n_busy + take == 0) break;
     const int q = base + __popc(m & ((1u << lane) - 1u));
     if (free_lane && q < take) {
-      path = static_cast<int>(blockIdx.x) + (taken + q) * blocks;
+      path = pool_path(n, blockIdx.x, blocks, taken + q);
       ox = rays8[path];
       oy = rays8[n + path];
       oz = rays8[2 * static_cast<size_t>(n) + path];
@@ -579,7 +575,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLights))
       ++dep;
     }
   }
-  if (kStaged) drain_ring(nt, g, s_bar);
+  drain_ring(nt, g, s_bar);
   if (rounds_out != nullptr && tid == 0) rounds_out[blockIdx.x] = rounds;
 }
 

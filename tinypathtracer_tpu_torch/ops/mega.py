@@ -225,11 +225,9 @@ def _mega_schedule(lengths, blocks: int, threads: int = MEGA_THREADS):
     return rounds, lane, start
 
 
-@functools.cache
-def _lib(defines=()):
-    """Kernel B's library; `defines` builds a lab variant
-    (tools/lab_mega.py)."""
-    lib = cuda_build.load_library("mega", defines)
+def _bind(lib):
+    """Declares the C entry points of a build of csrc/mega.cu (this
+    module's, or a lab variant's: tools/lab_mega.py)."""
     lib.tpt_mega_trace.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p] * 4
     lib.tpt_mega_trace.restype = ctypes.c_int
@@ -240,6 +238,12 @@ def _lib(defines=()):
     lib.tpt_mega_resources.restype = ctypes.c_int
     lib.tpt_mega_threads.argtypes = []
     lib.tpt_mega_threads.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib():
+    lib = _bind(cuda_build.load_library("mega"))
     if lib.tpt_mega_threads() != MEGA_THREADS:
         raise RuntimeError(f"csrc/mega.cu runs {lib.tpt_mega_threads()} "
                            f"lanes a block, MEGA_THREADS is {MEGA_THREADS}")
@@ -268,13 +272,12 @@ def mega_grid(n: int, n_lights: int, save_hits: bool = False) -> int:
 
 
 def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
-               n_lights: int, save_hits: bool, rounds=None, blocks: int = 0,
-               defines=()):
+               n_lights: int, save_hits: bool, rounds=None, blocks: int = 0):
     """Kernel B. With `rounds` (int32 [blocks] on the rays' device, blocks
     = mega_grid(N, ...) unless given) it also writes the sweeps each block
     ran; the route passes none. `blocks` in 1..N overrides the grid: N /
-    MEGA_THREADS blocks or more give each lane one path, no refill;
-    `defines` runs a variant build (both for tools/lab_mega.py)."""
+    MEGA_THREADS blocks or more give each lane one path, no refill (for
+    tools/lab_mega.py)."""
     shade_rows = shadeT.T.contiguous()                   # [Fp, 32] face-major
     cuda_build.check_operands(rays8, u8d, planesT, shade_rows, lights)
     n, fp, dev = rays8.shape[1], planesT.shape[0], rays8.device
@@ -289,7 +292,7 @@ def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
                 and rounds.is_contiguous() and rounds.shape == (g,)):
             raise ValueError(f"rounds must be a contiguous int32 tensor of "
                              f"{g} on {dev}")
-    status = _lib(defines).tpt_mega_trace(
+    status = _lib().tpt_mega_trace(
         rays8.data_ptr(), u8d.data_ptr(), planesT.data_ptr(),
         shade_rows.data_ptr(), lights.data_ptr(), n, fp, depth, n_lights,
         blocks, out.data_ptr(), hits.data_ptr() if save_hits else None,

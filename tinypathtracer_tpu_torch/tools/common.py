@@ -17,9 +17,19 @@ from tinypathtracer_tpu_torch.render.renderer import resolve_device
 
 
 # H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3; the rooflines of a lab's bound (as chip_smoke.py's)
+# cores, dense TF32 on the tensor cores, and HBM3; the rooflines of every
+# bound the labs and chip_smoke.py report
 FP32_PEAK = 67e12
+TF32_PEAK = 495e12
 HBM_BYTES_PER_S = 3.35e12
+# fp32 operations of the hit test (csrc/hit.cuh), a fused multiply-add
+# counted as 2 and the IEEE divide as 1 (the least it can cost; the
+# compiler's divide is a sequence of ~10 instructions), comparisons not
+# counted: o' = W o + c is 3 x (1 mul + 2 FMA) + 3 adds = 18 per
+# (origin, triangle); a direction against it is d' = W d (15), t (1),
+# u and v (2 FMA = 4), u + v (1) = 21 per (direction, triangle)
+OPS_ORIGIN = 18
+OPS_DIRECTION = 21
 
 
 def bound(ops, nbytes):

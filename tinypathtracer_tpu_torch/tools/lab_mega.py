@@ -23,9 +23,6 @@ light), it prints:
   blocks, rounds_mean, rounds_max
   no_refill_ms, eff_no_refill   the forward with one path per lane
                           (N / MEGA_THREADS blocks: no refill)
-  global_planes_ms        the forward built with TPT_MEGA_GLOBAL_PLANES:
-                          the sweep reads the planes from global memory
-                          (__ldg broadcasts) instead of the shared ring
   tile_skip_share         what a warp-wide cull of 128-slot tiles could
                           skip: the share of (warp, tile) pairs in which
                           no lane's query enters the tile's box within
@@ -35,6 +32,18 @@ light), it prints:
                           frame, lanes grouped 32 at random as the pool
                           mixes them (a count, not a time)
 
+With --variants (on the card only) it times instead the designs kernel B
+did not keep, each a build of csrc/mega.cu with the edits VARIANTS
+lists, in turns with the kernel (the kernel, each variant, then the same
+in reverse order), per cell and instance, with each build's registers
+and local memory; and it splits the cost of the interleaved pool's
+scattered loads and stores from its schedule: the kernel and the
+contiguous-pool build on one grid of SPLIT_BLOCKS (or fewer) blocks, the
+latter on the paths permuted so that each of its blocks runs the very
+pools, in the very order, of the kernel's block of that index (the same
+rounds), each lane's 32 loads or stores then falling on consecutive
+paths' columns.
+
 Every variant's rows must equal the kernel's, and the counted rounds the
 plain schedule model's (ops/mega._mega_schedule). With --device cpu the
 plain twin runs at whatever --n gives: times are the host's, registers
@@ -43,13 +52,16 @@ block.
 
 Usage: python -m tinypathtracer_tpu_torch.tools.lab_mega [--device
        cuda|cpu] [--n 1048576] [--scenes room,big_room] [--lights 0,3]
-       [--reps 3]
+       [--reps 3] [--variants]
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import json
+import subprocess
 
 import torch
 
@@ -63,21 +75,45 @@ from tinypathtracer_tpu_torch.ops.sampling import prng_key
 from tinypathtracer_tpu_torch.render.integrator import trace_paths
 from tinypathtracer_tpu_torch.render.renderer import lane_rays, prepare_state
 from tinypathtracer_tpu_torch.tools import common
+from tinypathtracer_tpu_torch.utils import cuda_build
 from tinypathtracer_tpu_torch.utils.math3d import DELTA, REAL_MAX
 
 SCENES = {"room": (2, 8, 16), "big_room": (2, 16, 32)}
-GLOBAL_PLANES = ("TPT_MEGA_GLOBAL_PLANES",)
-# fp32 operations of the hit test (csrc/hit.cuh; a fused multiply-add
-# counts 2, the IEEE divide 1): 18 per (origin, triangle), 21 per
-# (direction, triangle)
-OPS_ORIGIN = 18
-OPS_DIRECTION = 21
 SKIP_PATHS = 1 << 14
 SKIP_TILE = 128               # csrc/mega.cu kTile
+# The designs kernel B did not keep: edits (text, replacement) of
+# csrc/mega.cu, each text found exactly once.
+_LANES = "constexpr int kThreads = 256;"
+_STAGES = "constexpr int kStages = 4;"
+_BLOCKS = "lights <= 2 ? 4 : 3"
+VARIANTS = {
+    # block b takes the paths [b P, (b + 1) P), P = ceil(N / blocks)
+    "contiguous_pool": [
+        ("  return (n - b + g - 1) / g;",
+         "  const int p = (n + g - 1) / g;\n"
+         "  return max(0, min(p, n - b * p));"),
+        ("  return b + k * g;", "  return b * ((n + g - 1) / g) + k;")],
+    "lanes128": [(_LANES, "constexpr int kThreads = 128;"),
+                 (_BLOCKS, "lights <= 2 ? 8 : 6")],
+    "ring8": [(_STAGES, "constexpr int kStages = 8;")],
+    "unroll2": [("      for (int k = 0; k < cnt; ++k) {",
+                 "#pragma unroll 2\n      for (int k = 0; k < cnt; ++k) {")],
+    "lights_4_blocks": [(_BLOCKS, "4")],
+    # the room's 15 tiles resident, two blocks an SM up to 2 lights
+    "lanes512_ring16": [(_LANES, "constexpr int kThreads = 512;"),
+                        (_BLOCKS, "lights <= 2 ? 2 : 1"),
+                        (_STAGES, "constexpr int kStages = 16;")],
+    "lanes128_ring8": [(_LANES, "constexpr int kThreads = 128;"),
+                       (_BLOCKS, "lights <= 2 ? 8 : 6"),
+                       (_STAGES, "constexpr int kStages = 8;")],
+}
+SPLIT_BLOCKS = 512
+LIGHTS = 3                    # the most with_lights adds
 
 
-def with_lights(scene):
-    """The scene with one point, one spot and one directional light."""
+def with_lights(scene, count: int = LIGHTS):
+    """The scene with the first `count` of one point, one spot and one
+    directional light."""
     dev = scene.device
     lights = dict(
         light_kind=torch.tensor([0, 2, 1], dtype=torch.int32),
@@ -91,7 +127,7 @@ def with_lights(scene):
         light_cos_outer=torch.tensor([0.0, 0.8, 0.0]),
         light_inv_cone=torch.tensor([0.0, 5.0, 0.0]))
     return dataclasses.replace(
-        scene, **{k: v.to(dev) for k, v in lights.items()})
+        scene, **{k: v[:count].to(dev) for k, v in lights.items()})
 
 
 def mega_work(hits, shadeT, depth, n_lights, save_hits):
@@ -125,7 +161,8 @@ def mega_work(hits, shadeT, depth, n_lights, save_hits):
     nbytes = n * (32 + 32 * depth + 64) + fp * (48 + 128)
     if save_hits:
         nbytes += n * 32 * depth
-    return origins * OPS_ORIGIN + directions * OPS_DIRECTION, nbytes
+    return (origins * common.OPS_ORIGIN
+            + directions * common.OPS_DIRECTION), nbytes
 
 
 def thread_efficiency(lengths, warp: int = 32) -> float:
@@ -234,7 +271,8 @@ def check_rows(got, want, what):
 
 def measure(ops, depth, n_lights, dev, reps):
     """One cell: both instances' times and bounds, the lane efficiencies,
-    and on the card the rounds against the model, the variants' times."""
+    and on the card the rounds against the model and the no-refill
+    time."""
     cell = {}
     fwd = mega.mega_trace(*ops, depth=depth, n_lights=n_lights)
     _, hits = mega.mega_trace(*ops, depth=depth, n_lights=n_lights,
@@ -265,19 +303,122 @@ def measure(ops, depth, n_lights, dev, reps):
         if not torch.equal(counted.cpu(), rounds.cpu()):
             raise AssertionError("kernel B's rounds per block differ from "
                                  "the schedule model's")
-        variants = {"no_refill": dict(blocks=single),
-                    "global_planes": dict(defines=GLOBAL_PLANES)}
-        for name, kw in variants.items():
-            check_rows(mega._mega_cuda(*ops, depth, n_lights, False, **kw),
-                       fwd, name)
-            cell[f"{name}_ms"] = common.timed_ms(
-                lambda: mega._mega_cuda(*ops, depth, n_lights,   # noqa: B023
-                                        False, **kw), dev, reps)
+        check_rows(mega._mega_cuda(*ops, depth, n_lights, False,
+                                   blocks=single), fwd, "no refill")
+        cell["no_refill_ms"] = common.timed_ms(
+            lambda: mega._mega_cuda(*ops, depth, n_lights, False,
+                                    blocks=single), dev, reps)
     cell["blocks"] = blocks
     cell["rounds_mean"] = float(rounds.float().mean())
     cell["rounds_max"] = int(rounds.max())
     cell["eff_pool"] = pool_efficiency(lengths, rounds)
     cell["sweeps_per_path"] = float(lengths.float().mean())
+    return cell
+
+
+@functools.cache
+def build_variants():
+    """{name: library} of every VARIANTS build of csrc/mega.cu, compiled
+    at once (one nvcc each) under _build/variants/."""
+    src = (cuda_build.CSRC / "mega.cu").read_text()
+    out = cuda_build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise ValueError(f"variant {name}: {old!r} is not in "
+                                 "csrc/mega.cu exactly once")
+            text = text.replace(old, new)
+        (out / f"mega_{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+             f"-I{cuda_build.CSRC}", "-o", str(out / f"libmega_{name}.so"),
+             str(out / f"mega_{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
+        libs[name] = mega._bind(ctypes.CDLL(str(out / f"libmega_{name}.so")))
+    return libs
+
+
+def run_lib(lib, ops, depth, n_lights, save_hits, blocks=0):
+    """One launch of a build of kernel B (blocks <= 0: its own grid)."""
+    rays8, u8d, planesT, shadeT, lights = ops
+    shade_rows = shadeT.T.contiguous()
+    n, dev = rays8.shape[1], rays8.device
+    out = torch.empty((16, n), device=dev)
+    hits = torch.empty((8 * depth, n), device=dev) if save_hits else None
+    status = lib.tpt_mega_trace(
+        rays8.data_ptr(), u8d.data_ptr(), planesT.data_ptr(),
+        shade_rows.data_ptr(), lights.data_ptr(), n, planesT.shape[0], depth,
+        n_lights, blocks, out.data_ptr(),
+        hits.data_ptr() if save_hits else None, None,
+        cuda_build.stream_ptr(dev))
+    cuda_build.check_launch(status, "mega variant")
+    return (out, hits) if save_hits else out
+
+
+def resources(lib, n_lights, save_hits):
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    cuda_build.check_launch(lib.tpt_mega_resources(
+        n_lights, int(save_hits), ctypes.byref(regs), ctypes.byref(local)),
+        "mega_resources")
+    return regs.value, local.value
+
+
+def split_perm(n, blocks, dev):
+    """The permutation of n paths (n a multiple of blocks) under which
+    contiguous pools of n / blocks paths hold the interleaved pools:
+    column b * (n / blocks) + k takes path b + k * blocks."""
+    return torch.arange(n, device=dev).view(n // blocks, blocks).T.reshape(-1)
+
+
+def variant_cell(libs, ops, depth, n_lights, dev, reps):
+    """One cell of --variants: per instance, every build's times in turns
+    (kernel first and last), registers and local memory, its rows checked
+    against the kernel's; then the scatter split (module docstring)."""
+    cell = {}
+    kernel = mega._lib()
+    builds = {"kernel": kernel, **libs}
+    order = list(builds) + list(builds)[::-1]
+    for inst, save in (("fwd", False), ("save_hits", True)):
+        want = run_lib(kernel, ops, depth, n_lights, save)
+        for name, lib in builds.items():
+            got = run_lib(lib, ops, depth, n_lights, save)
+            check_rows(torch.cat(got) if save else got,
+                       torch.cat(want) if save else want, f"{name} {inst}")
+            cell[f"{name}.{inst}_regs_local"] = resources(lib, n_lights,
+                                                          save)
+        for name in order:
+            cell.setdefault(f"{name}.{inst}_ms", []).append(common.timed_ms(
+                functools.partial(run_lib, builds[name], ops, depth,
+                                  n_lights, save), dev, reps))
+        # the scatter split: the kernel's pools on both address layouts
+        n = ops[0].shape[1]
+        blocks = min(SPLIT_BLOCKS, mega.mega_grid(n, n_lights, save))
+        while n % blocks:
+            blocks -= 1
+        perm = split_perm(n, blocks, dev)
+        permuted = (ops[0][:, perm].contiguous(),
+                    ops[1][:, perm].contiguous()) + tuple(ops[2:])
+        runs = {"interleaved": functools.partial(
+                    run_lib, kernel, ops, depth, n_lights, save, blocks),
+                "contiguous": functools.partial(
+                    run_lib, libs["contiguous_pool"], permuted, depth,
+                    n_lights, save, blocks)}
+        base, got = runs["interleaved"](), runs["contiguous"]()
+        check_rows(torch.cat(got) if save else got,
+                   torch.cat(base)[:, perm] if save else base[:, perm],
+                   f"permuted contiguous pools {inst}")
+        for name in ("interleaved", "contiguous", "contiguous",
+                     "interleaved"):
+            cell.setdefault(f"split{blocks}.{name}.{inst}_ms", []).append(
+                common.timed_ms(runs[name], dev, reps))
     return cell
 
 
@@ -287,7 +428,12 @@ def main(argv=None):
     ap.add_argument("--scenes", default="room,big_room")
     ap.add_argument("--lights", default="0,3")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--variants", action="store_true",
+                    help="time the builds VARIANTS lists (card only)")
     args, dev = common.parse(ap, argv, "lab_mega")
+    if args.variants and dev.type != "cuda":
+        raise ValueError("--variants builds kernel B's variants: card only")
+    libs = build_variants() if args.variants else None
     cfg = RenderConfig(width=512, height=512, spp=16, max_depth=8)
     res = {"device": common.device_name(dev), "n": args.n}
     key = prng_key(0, dev)
@@ -296,13 +442,18 @@ def main(argv=None):
                                  env_radiance=gradient_sky(64, 128),
                                  device=dev)
         for lights in (int(x) for x in args.lights.split(",")):
-            if lights not in (0, 3):
-                raise ValueError(f"--lights takes 0 or 3, not {lights}")
-            scene = with_lights(base) if lights else base
+            if not 0 <= lights <= LIGHTS:
+                raise ValueError(f"--lights takes 0 to {LIGHTS}, not "
+                                 f"{lights}")
+            scene = with_lights(base, lights) if lights else base
             ops, n_lights = frame_operands(scene, cfg, key, args.n)
-            cell = measure(ops, cfg.max_depth, n_lights, dev, args.reps)
-            cell["tile_skip_share"] = tile_skip_share(
-                scene, cfg, key, min(args.n, SKIP_PATHS))
+            if libs is not None:
+                cell = variant_cell(libs, ops, cfg.max_depth, n_lights, dev,
+                                    args.reps)
+            else:
+                cell = measure(ops, cfg.max_depth, n_lights, dev, args.reps)
+                cell["tile_skip_share"] = tile_skip_share(
+                    scene, cfg, key, min(args.n, SKIP_PATHS))
             res[f"{name}.lights{lights}"] = cell
             print(json.dumps({f"{name}.lights{lights}": cell}), flush=True)
     print(json.dumps(res, indent=1), flush=True)

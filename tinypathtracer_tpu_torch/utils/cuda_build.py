@@ -43,31 +43,27 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _library(name: str, defines=()) -> Path:
-    """The shared library of `csrc/<name>.cu` built with `-D` defines,
-    named by a hash of its source, the shared headers, the flags and the
-    defines."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+def _library(name: str) -> Path:
+    """The shared library of `csrc/<name>.cu`, named by a hash of its
+    source, the shared headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_libraries(specs) -> None:
-    """Compile the libraries of `csrc/<name>.cu` for every spec (a name,
-    or a (name, defines) pair) that is not built yet, one nvcc process
-    each, all running at once."""
+def build_libraries(names) -> None:
+    """Compile the libraries of `csrc/<name>.cu` for every name that is
+    not built yet, one nvcc process each, all running at once."""
     procs = []
-    for spec in specs:
-        name, defines = (spec, ()) if isinstance(spec, str) else spec
-        lib = _library(name, defines)
+    for name in names:
+        lib = _library(name)
         if lib.exists():
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         procs.append((name, lib, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
-             str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
     for name, lib, tmp, proc in procs:
@@ -81,11 +77,10 @@ def build_libraries(specs) -> None:
 
 
 @functools.cache
-def load_library(name: str, defines=()) -> ctypes.CDLL:
-    """Compile (once per source hash and defines) and load
-    `csrc/<name>.cu`."""
-    build_libraries([(name, tuple(defines))])
-    return ctypes.CDLL(str(_library(name, defines)))
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile (once per source hash) and load `csrc/<name>.cu`."""
+    build_libraries([name])
+    return ctypes.CDLL(str(_library(name)))
 
 
 def check_launch(status: int, kernel: str) -> None:
