@@ -581,25 +581,28 @@ def check_rounds(ops, n_lights, save_hits, lengths, what, blocks=0):
     rounds = torch.zeros((g,), dtype=torch.int32, device=dev)
     got = mega._mega_cuda(*ops, 8, n_lights, save_hits, rounds=rounds,
                           blocks=blocks)
-    model = mega._mega_schedule(lengths.cpu(), g)[0]
+    model = mega._mega_schedule(lengths.cpu(), g,
+                                mega.mega_threads(n_lights))[0]
     check_equal([rounds.cpu()], [model],
                 f"kernel B's rounds vs the schedule model, {what}, "
                 f"save_hits={save_hits}, {g} blocks", ("rounds",))
     return got, rounds
 
 
-def log_lanes(lengths, rounds, what):
+def log_lanes(lengths, rounds, n_lights, what):
     """The lane efficiency of one path per thread (from the paths'
     sweeps) and of kernel B's refilled pool (from its rounds)."""
+    from tinypathtracer_tpu_torch.ops import mega
     from tinypathtracer_tpu_torch.tools import lab_mega
 
+    threads = mega.mega_threads(n_lights)
     log(f"  kernel B's rounds per block = the schedule model's on all "
         f"{rounds.shape[0]} blocks ({what}): mean "
         f"{float(rounds.float().mean()):.2f}, max {int(rounds.max())}; "
         f"sweeps per path {float(lengths.float().mean()):.3f}; lane "
         f"efficiency one path per thread "
         f"{lab_mega.thread_efficiency(lengths):.4f}, refilled pool "
-        f"{lab_mega.pool_efficiency(lengths, rounds):.4f}")
+        f"{lab_mega.pool_efficiency(lengths, rounds, threads):.4f}")
 
 
 def mega_vs_twin(ops, n_lights, what):
@@ -629,7 +632,7 @@ def mega_vs_twin(ops, n_lights, what):
                     f"kernel B on {REFILL_BLOCKS} blocks vs its own grid, "
                     f"{what}, save_hits={save}",
                     ("out", "hits") if save else ("out",))
-    log_lanes(lengths, rounds, f"{what}, {REFILL_BLOCKS} blocks")
+    log_lanes(lengths, rounds, n_lights, f"{what}, {REFILL_BLOCKS} blocks")
     return err_b, err_h
 
 
@@ -1198,7 +1201,7 @@ def main():
     for save in (False, True):
         _, rounds = check_rounds(ops, 0, save, lengths,
                                  f"room, {h_hits.shape[1]}")
-    log_lanes(lengths, rounds, f"room, {h_hits.shape[1]} paths")
+    log_lanes(lengths, rounds, 0, f"room, {h_hits.shape[1]} paths")
     ops_b, bytes_b = lab_mega.mega_work(h_hits, ops[3], 8, 0, save_hits=False)
     ops_h, bytes_h = lab_mega.mega_work(h_hits, ops[3], 8, 0, save_hits=True)
     ops_a, bytes_a = dense_work(rays.shape[0], woop.n_padded)

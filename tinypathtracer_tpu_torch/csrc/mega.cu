@@ -24,10 +24,10 @@
 // ended, its dead lanes idling through every later sweep.
 //
 // Design: persistent blocks whose lanes are refilled from a pool of paths.
-// - The grid is as many blocks of kThreads lanes as the SMs hold at once
-//   (at most one block per kThreads paths). Block b of G takes the paths
-//   b, b + G, b + 2G, ... in that order: every block gets a like share of
-//   the frame's long and short paths.
+// - The grid is as many blocks of lanes(lights) lanes as the SMs hold at
+//   once (at most one block per lanes(lights) paths). Block b of G takes
+//   the paths b, b + G, b + 2G, ... in that order: every block gets a like
+//   share of the frame's long and short paths.
 // - The block runs in rounds. First each lane that holds a path shades
 //   its ray's hit: the shading fetch (an indexed load of the hit slot's
 //   face-major row of 32 floats), emission, the BSDF sample, the extra
@@ -47,10 +47,10 @@
 //   order, so its bits do not change: only which lane runs it, and when.
 // - The planes come into shared memory by TMA, in tiles of kTile slots
 //   (one cp.async.bulk of kTile x 48 B each, completing on an mbarrier),
-//   through a ring of kStages buffers: tile k + kStages is copied as soon
-//   as tile k is tested, so the copies run ahead of the tests. A scene of
-//   at most kStages tiles is copied once and stays. The tests read the
-//   planes as shared-memory broadcasts.
+//   through a ring of kStages (stages(lights)) buffers: tile k + kStages
+//   is copied as soon as tile k is tested, so the copies run ahead of the
+//   tests. A scene of at most kStages tiles is copied once and stays. The
+//   tests read the planes as shared-memory broadcasts.
 // - Across a sweep a lane keeps only what the sweep and the accumulation
 //   after it need: residual rows 0-3 are stored before the sweep, the
 //   base color is read again and the light radiance computed again after
@@ -187,17 +187,26 @@ __device__ __forceinline__ void delta_light(const float* L, float px,
   lrad[2] = L[3] * L[4] * fa;
 }
 
-constexpr int kThreads = 256;  // lanes of a block
-constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;     // slots of a staged tile
-constexpr int kStages = 4;     // tile buffers of the ring
 constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kRingBytes = kStages * kTile * 48;
 
-// Blocks an SM each instance is built for (__launch_bounds__): four (at
-// most 64 registers a thread) while up to two lights' directions fit
-// beside the path state without spilling, three (80) above.
-constexpr int min_blocks(int lights) { return lights <= 2 ? 4 : 3; }
+// Each instance's block (__launch_bounds__). Up to two lights' state fits
+// 64 registers a thread: two blocks an SM of 512 lanes, whose 16-deep ring
+// (96 KB) holds the room's 15 tiles resident. Above, three blocks of 256
+// lanes (80 registers) with a 4-deep ring: one block of 512 at 80-114
+// registers would leave the SM half its lanes.
+__host__ __device__ constexpr int lanes(int lights) {
+  return lights <= 2 ? 512 : 256;
+}
+__host__ __device__ constexpr int min_blocks(int lights) {
+  return lights <= 2 ? 2 : 3;
+}
+__host__ __device__ constexpr int stages(int lights) {
+  return lights <= 2 ? 16 : 4;
+}
+constexpr size_t ring_bytes(int lights) {
+  return static_cast<size_t>(stages(lights)) * kTile * 48;
+}
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -248,6 +257,7 @@ __device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
 
 // Thread 0 starts the ring: every tile of a resident scene, else the first
 // kStages tiles of the sequence. A resident scene is waited for here.
+template <int kStages>
 __device__ __forceinline__ void start_ring(const float* planes, int fp,
                                            int nt, uint64_t* bars) {
   if (threadIdx.x == 0) {
@@ -267,6 +277,7 @@ __device__ __forceinline__ void start_ring(const float* planes, int fp,
 // The copies still in flight when the block ends (tiles g .. g + kStages
 // - 1 of the sequence): waited for, so that none lands in shared memory
 // the block no longer owns.
+template <int kStages>
 __device__ __forceinline__ void drain_ring(int nt, unsigned g,
                                           uint64_t* bars) {
   if (nt <= kStages) return;
@@ -289,6 +300,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ planes,
                                       int& slot_a, bool need_b,
                                       const float db[3], int& slot_b,
                                       const float wi[][3], bool occluded[]) {
+  constexpr int kStages = stages(kLights);
   bool active = need_a || need_b;
 #pragma unroll
   for (int li = 0; li < kLights; ++li) active = active || !occluded[li];
@@ -363,7 +375,7 @@ __device__ __forceinline__ void store_rows(float* __restrict__ hits, int n,
 // adds the residual stores and nothing else: every value it stores is live
 // in the forward already.
 template <int kLights, bool kSaveHits>
-__global__ void __launch_bounds__(kThreads, min_blocks(kLights))
+__global__ void __launch_bounds__(lanes(kLights), min_blocks(kLights))
     mega_kernel(const float* __restrict__ rays8,
                 const float* __restrict__ u8d,
                 const float* __restrict__ planes,
@@ -372,6 +384,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLights))
                 float* __restrict__ out, float* __restrict__ hits,
                 int* __restrict__ rounds_out) {
   constexpr int kSlots = kLights > 0 ? kLights : 1;
+  constexpr int kThreads = lanes(kLights), kWarps = kThreads / 32;
+  constexpr int kStages = stages(kLights);
   __shared__ float s_lights[kSlots * 16];
   __shared__ uint64_t s_bar[kStages];
   __shared__ int s_free[2][kWarps], s_busy[2][kWarps];  // by round parity
@@ -379,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLights))
   for (int k = tid; k < kLights * 16; k += kThreads) s_lights[k] = lights[k];
   const int nt = (fp + kTile - 1) / kTile;
   unsigned g = 0;  // the ring's next tile of the sequence
-  start_ring(planes, fp, nt, s_bar);
+  start_ring<kStages>(planes, fp, nt, s_bar);
 
   const int blocks = gridDim.x;
   const int pool = pool_size(n, blockIdx.x, blocks);
@@ -575,7 +589,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLights))
       ++dep;
     }
   }
-  drain_ring(nt, g, s_bar);
+  drain_ring<kStages>(nt, g, s_bar);
   if (rounds_out != nullptr && tid == 0) rounds_out[blockIdx.x] = rounds;
 }
 
@@ -584,7 +598,7 @@ template <int kLights, bool kSaveHits>
 cudaError_t allow_ring() {
   return cudaFuncSetAttribute(mega_kernel<kLights, kSaveHits>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kRingBytes));
+                              static_cast<int>(ring_bytes(kLights)));
 }
 
 template <int kLights, bool kSaveHits>
@@ -594,13 +608,14 @@ cudaError_t launch(const float* rays8, const float* u8d, const float* planes,
                    int* rounds, cudaStream_t stream) {
   const cudaError_t err = allow_ring<kLights, kSaveHits>();
   if (err != cudaSuccess) return err;
-  mega_kernel<kLights, kSaveHits><<<blocks, kThreads, kRingBytes, stream>>>(
-      rays8, u8d, planes, shade, lights, n, fp, depth, out, hits, rounds);
+  mega_kernel<kLights, kSaveHits>
+      <<<blocks, lanes(kLights), ring_bytes(kLights), stream>>>(
+          rays8, u8d, planes, shade, lights, n, fp, depth, out, hits, rounds);
   return cudaGetLastError();
 }
 
 // The persistent grid: the blocks the SMs hold at once, at most one per
-// kThreads paths.
+// lanes(kLights) paths.
 template <int kLights, bool kSaveHits>
 cudaError_t grid(int n, int* blocks) {
   int dev, sms, per_sm;
@@ -610,10 +625,11 @@ cudaError_t grid(int n, int* blocks) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mega_kernel<kLights, kSaveHits>, kThreads, kRingBytes);
+        &per_sm, mega_kernel<kLights, kSaveHits>, lanes(kLights),
+        ring_bytes(kLights));
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = min(sms * per_sm, (n + kThreads - 1) / kThreads);
+  *blocks = min(sms * per_sm, (n + lanes(kLights) - 1) / lanes(kLights));
   return cudaSuccess;
 }
 
@@ -647,8 +663,9 @@ constexpr Instance kInstances[2][kMaxLights + 1] = {
 
 }  // namespace
 
-// Lanes per block: ops/mega.MEGA_THREADS must equal it.
-extern "C" int tpt_mega_threads() { return kThreads; }
+// Lanes per block of the instances for n_lights: ops/mega.mega_threads
+// must equal it.
+extern "C" int tpt_mega_threads(int n_lights) { return lanes(n_lights); }
 
 // The grid tpt_mega_trace launches for n paths (blocks <= 0 there).
 extern "C" int tpt_mega_grid(int n, int n_lights, int save_hits,

@@ -18,10 +18,11 @@ inputs and outputs (the JAX package's [K, N] layouts), same arithmetic.
 It shades each bounce with the modular path's own helpers
 (`render.integrator.scatter` and `end_bounce`) and differs from it only
 in how it queries hits. `mega_trace` dispatches on the tensors' device.
-Kernel B runs persistent blocks of MEGA_THREADS lanes, each lane taking
-the next path of its block's pool when its path ends; `_mega_schedule`
-is the plain model of that schedule (the sweeps each block runs, from
-each path's `path_lengths`), which chip_smoke.py holds the kernel to.
+Kernel B runs persistent blocks of `mega_threads(n_lights)` lanes, each
+lane taking the next path of its block's pool when its path ends;
+`_mega_schedule` is the plain model of that schedule (the sweeps each
+block runs, from each path's `path_lengths`), which chip_smoke.py holds
+the kernel to.
 
 With `save_hits` the kernel also records per-bounce hit residuals
 (`unpack_hits` turns them into the integrator's stored-hit layout).
@@ -56,7 +57,6 @@ from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
 
 MEGA_MAX_FACES = 8192
 MAX_LIGHTS = 6
-MEGA_THREADS = 256      # lanes of a block of kernel B
 # shadeT row map (rows of the [32, Fp] fused table): rows 12-26 are the
 # 15 shade_packT rows (corner normals, base color, emission, eta,
 # metallic)
@@ -182,7 +182,13 @@ def path_lengths(hits, shadeT, depth: int):
     return 1 + live.sum(dim=0)
 
 
-def _mega_schedule(lengths, blocks: int, threads: int = MEGA_THREADS):
+def mega_threads(n_lights: int) -> int:
+    """Lanes of a block of kernel B's instances for n_lights
+    (csrc/mega.cu `lanes`)."""
+    return 512 if n_lights <= 2 else 256
+
+
+def _mega_schedule(lengths, blocks: int, threads: int):
     """Plain model of kernel B's schedule, for the tests and chip_smoke.py
     only: no route calls it. Block b of `blocks` holds the pool of paths
     b, b + blocks, b + 2 blocks, ...; each round, lanes whose path has
@@ -236,7 +242,7 @@ def _bind(lib):
     lib.tpt_mega_resources.argtypes = [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p, ctypes.c_void_p]
     lib.tpt_mega_resources.restype = ctypes.c_int
-    lib.tpt_mega_threads.argtypes = []
+    lib.tpt_mega_threads.argtypes = [ctypes.c_int]
     lib.tpt_mega_threads.restype = ctypes.c_int
     return lib
 
@@ -244,9 +250,12 @@ def _bind(lib):
 @functools.cache
 def _lib():
     lib = _bind(cuda_build.load_library("mega"))
-    if lib.tpt_mega_threads() != MEGA_THREADS:
-        raise RuntimeError(f"csrc/mega.cu runs {lib.tpt_mega_threads()} "
-                           f"lanes a block, MEGA_THREADS is {MEGA_THREADS}")
+    for n_lights in range(MAX_LIGHTS + 1):
+        if lib.tpt_mega_threads(n_lights) != mega_threads(n_lights):
+            raise RuntimeError(
+                f"csrc/mega.cu runs {lib.tpt_mega_threads(n_lights)} lanes a "
+                f"block with {n_lights} lights, mega_threads "
+                f"{mega_threads(n_lights)}")
     return lib
 
 
@@ -263,7 +272,7 @@ def kernel_resources(n_lights: int, save_hits: bool):
 def mega_grid(n: int, n_lights: int, save_hits: bool = False) -> int:
     """The blocks kernel B launches for n paths: as many as the card's
     SMs hold at once (from the instance's occupancy), at most one per
-    MEGA_THREADS paths."""
+    mega_threads(n_lights) paths."""
     blocks = ctypes.c_int()
     status = _lib().tpt_mega_grid(n, n_lights, int(save_hits),
                                   ctypes.byref(blocks))
@@ -276,8 +285,8 @@ def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
     """Kernel B. With `rounds` (int32 [blocks] on the rays' device, blocks
     = mega_grid(N, ...) unless given) it also writes the sweeps each block
     ran; the route passes none. `blocks` in 1..N overrides the grid: N /
-    MEGA_THREADS blocks or more give each lane one path, no refill (for
-    tools/lab_mega.py)."""
+    mega_threads(n_lights) blocks or more give each lane one path, no
+    refill (for tools/lab_mega.py)."""
     shade_rows = shadeT.T.contiguous()                   # [Fp, 32] face-major
     cuda_build.check_operands(rays8, u8d, planesT, shade_rows, lights)
     n, fp, dev = rays8.shape[1], planesT.shape[0], rays8.device

@@ -22,7 +22,7 @@ light), it prints:
                           (lanes x the rounds the kernel counted)
   blocks, rounds_mean, rounds_max
   no_refill_ms, eff_no_refill   the forward with one path per lane
-                          (N / MEGA_THREADS blocks: no refill)
+                          (one block per mega_threads paths: no refill)
   tile_skip_share         what a warp-wide cull of 128-slot tiles could
                           skip: the share of (warp, tile) pairs in which
                           no lane's query enters the tile's box within
@@ -81,11 +81,18 @@ from tinypathtracer_tpu_torch.utils.math3d import DELTA, REAL_MAX
 SCENES = {"room": (2, 8, 16), "big_room": (2, 16, 32)}
 SKIP_PATHS = 1 << 14
 SKIP_TILE = 128               # csrc/mega.cu kTile
+
+
+def _block(lanes, min_blocks, stages):
+    """Edits of csrc/mega.cu that give every instance these lanes, blocks
+    an SM and ring depth (C expressions of `lights`)."""
+    return [("  return lights <= 2 ? 512 : 256;", f"  return {lanes};"),
+            ("  return lights <= 2 ? 2 : 3;", f"  return {min_blocks};"),
+            ("  return lights <= 2 ? 16 : 4;", f"  return {stages};")]
+
+
 # The designs kernel B did not keep: edits (text, replacement) of
 # csrc/mega.cu, each text found exactly once.
-_LANES = "constexpr int kThreads = 256;"
-_STAGES = "constexpr int kStages = 4;"
-_BLOCKS = "lights <= 2 ? 4 : 3"
 VARIANTS = {
     # block b takes the paths [b P, (b + 1) P), P = ceil(N / blocks)
     "contiguous_pool": [
@@ -93,19 +100,16 @@ VARIANTS = {
          "  const int p = (n + g - 1) / g;\n"
          "  return max(0, min(p, n - b * p));"),
         ("  return b + k * g;", "  return b * ((n + g - 1) / g) + k;")],
-    "lanes128": [(_LANES, "constexpr int kThreads = 128;"),
-                 (_BLOCKS, "lights <= 2 ? 8 : 6")],
-    "ring8": [(_STAGES, "constexpr int kStages = 8;")],
+    # the first design: 256 lanes and a 4-deep ring for every light count
+    "lanes256_ring4": _block("256", "lights <= 2 ? 4 : 3", "4"),
+    "lanes256_ring8": _block("256", "lights <= 2 ? 4 : 3", "8"),
+    "lanes128_ring4": _block("128", "lights <= 2 ? 8 : 6", "4"),
+    "lanes128_ring8": _block("128", "lights <= 2 ? 8 : 6", "8"),
+    "lanes512_ring16": _block("512", "lights <= 2 ? 2 : 1", "16"),
+    "lights_4_blocks": _block("lights <= 2 ? 512 : 256",
+                              "lights <= 2 ? 2 : 4", "lights <= 2 ? 16 : 4"),
     "unroll2": [("      for (int k = 0; k < cnt; ++k) {",
                  "#pragma unroll 2\n      for (int k = 0; k < cnt; ++k) {")],
-    "lights_4_blocks": [(_BLOCKS, "4")],
-    # the room's 15 tiles resident, two blocks an SM up to 2 lights
-    "lanes512_ring16": [(_LANES, "constexpr int kThreads = 512;"),
-                        (_BLOCKS, "lights <= 2 ? 2 : 1"),
-                        (_STAGES, "constexpr int kStages = 16;")],
-    "lanes128_ring8": [(_LANES, "constexpr int kThreads = 128;"),
-                       (_BLOCKS, "lights <= 2 ? 8 : 6"),
-                       (_STAGES, "constexpr int kStages = 8;")],
 }
 SPLIT_BLOCKS = 512
 LIGHTS = 3                    # the most with_lights adds
@@ -175,7 +179,7 @@ def thread_efficiency(lengths, warp: int = 32) -> float:
     return float(lengths.sum()) / float(warp * spans.sum())
 
 
-def pool_efficiency(lengths, rounds, threads: int = mega.MEGA_THREADS):
+def pool_efficiency(lengths, rounds, threads: int):
     """Lane efficiency of the refilled pool: the sweeps the paths need
     over the lane sweeps the blocks ran."""
     return float(lengths.sum()) / float(threads * rounds.long().sum())
@@ -292,10 +296,11 @@ def measure(ops, depth, n_lights, dev, reps):
         cell[f"{inst}_regs"], cell[f"{inst}_local_bytes"] = regs, local
     cell["eff_thread"] = thread_efficiency(lengths)
     blocks = mega.mega_grid(n, n_lights) if dev.type == "cuda" else 1
-    rounds = mega._mega_schedule(lengths, blocks)[0]
-    single = -(-n // mega.MEGA_THREADS)
+    threads = mega.mega_threads(n_lights)
+    rounds = mega._mega_schedule(lengths, blocks, threads)[0]
+    single = -(-n // threads)
     cell["eff_no_refill"] = pool_efficiency(
-        lengths, mega._mega_schedule(lengths, single)[0])
+        lengths, mega._mega_schedule(lengths, single, threads)[0], threads)
     if dev.type == "cuda":
         counted = torch.zeros((blocks,), dtype=torch.int32, device=dev)
         check_rows(mega._mega_cuda(*ops, depth, n_lights, False,
@@ -311,7 +316,7 @@ def measure(ops, depth, n_lights, dev, reps):
     cell["blocks"] = blocks
     cell["rounds_mean"] = float(rounds.float().mean())
     cell["rounds_max"] = int(rounds.max())
-    cell["eff_pool"] = pool_efficiency(lengths, rounds)
+    cell["eff_pool"] = pool_efficiency(lengths, rounds, threads)
     cell["sweeps_per_path"] = float(lengths.float().mean())
     return cell
 
