@@ -313,6 +313,9 @@ __device__ __forceinline__ void sweep(const float* __restrict__ planes,
     const int f0 = t * kTile, cnt = min(kTile, fp - f0);
     const float* src = tile_buffer(s);
     if (active) {
+      // four slots an iteration: the compiler overlaps their tests (the
+      // order of the updates does not change)
+#pragma unroll 4
       for (int k = 0; k < cnt; ++k) {
         float w[12];
         tpt::load_planes_shared(src + 12 * k, w);

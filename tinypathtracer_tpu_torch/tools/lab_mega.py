@@ -100,7 +100,8 @@ VARIANTS = {
          "  const int p = (n + g - 1) / g;\n"
          "  return max(0, min(p, n - b * p));"),
         ("  return b + k * g;", "  return b * ((n + g - 1) / g) + k;")],
-    # the first design: 256 lanes and a 4-deep ring for every light count
+    # the first design's blocks: 256 lanes and a 4-deep ring for every
+    # light count
     "lanes256_ring4": _block("256", "lights <= 2 ? 4 : 3", "4"),
     "lanes256_ring8": _block("256", "lights <= 2 ? 4 : 3", "8"),
     "lanes128_ring4": _block("128", "lights <= 2 ? 8 : 6", "4"),
@@ -108,8 +109,9 @@ VARIANTS = {
     "lanes512_ring16": _block("512", "lights <= 2 ? 2 : 1", "16"),
     "lights_4_blocks": _block("lights <= 2 ? 512 : 256",
                               "lights <= 2 ? 2 : 4", "lights <= 2 ? 16 : 4"),
-    "unroll2": [("      for (int k = 0; k < cnt; ++k) {",
-                 "#pragma unroll 2\n      for (int k = 0; k < cnt; ++k) {")],
+    "no_unroll": [("#pragma unroll 4\n", "")],
+    "unroll2": [("#pragma unroll 4\n", "#pragma unroll 2\n")],
+    "unroll8": [("#pragma unroll 4\n", "#pragma unroll 8\n")],
 }
 SPLIT_BLOCKS = 512
 LIGHTS = 3                    # the most with_lights adds
