@@ -8,9 +8,19 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits
 non-zero):
   1. the card, the versions, and the build of the six CUDA kernels
      (five sources, one nvcc each, all at once) from this checkout;
-  2. kernel A (dense closest hit) against its plain PyTorch twin on the
-     card: 65,536 rays from inside the 1,804-face room plus a ragged
-     batch; (slot, t, u, v) must be exactly equal;
+  2. kernel A (dense closest hit, SUPER-gated from 4,096 padded faces)
+     against its plain PyTorch twin on the card, exactly ((slot, t, u,
+     v)): on the room (ungated), the big room (gated, 8 runs) and the
+     large scene (gated, 64 runs), each with 65,536 random rays, a
+     ragged batch of 1,037, a half-masked batch of 65,536 and rays aimed
+     at the vertices and edge midpoints of the faces that set each run
+     box's faces, and on the big room its 2**20 camera rays (the gated
+     one-origin path); the reference is the ungated twin, which the gated
+     twin (the plain model, ops/dense._dense_schedule) must equal too;
+     the runs each warp tested and each block staged must equal the
+     model's; on the gated scenes it also counts the lanes a gate on
+     unwidened boxes (the JAX package's) would get wrong against the
+     ungated twin;
   3. kernel B (the megakernel), both instances, against its plain twin
      on the card: 64x64 @ 4 spp, depth 8, on the room, the big room and
      their 3-light variants, each whole and cut to a ragged 1,037 paths;
@@ -25,8 +35,10 @@ non-zero):
      Renderer(RenderConfig(512, 512, 16, 8), device="cuda").render, with
      the launch counters zeroed first: the megakernel frame, the modular
      frame on kernel A (compared with the megakernel frame), best-of-3
-     times and camera rays/s of both, then one megakernel frame of the
-     7,692-face room (8,192 padded faces);
+     times and camera rays/s of both, one profiled modular frame
+     (kernel A's device time per launch), then one megakernel frame of the
+     7,692-face room (8,192 padded faces) and one modular frame of it on
+     the gated kernel A (compared with the megakernel frame);
   5. both kernels against their plain twins at the main path's shapes,
      one 2**20-lane chunk of the frame: kernel A on its camera rays
      (exact), kernel B on its rays and uniforms in the room and in the
@@ -84,9 +96,13 @@ non-zero):
  14. kernel F (the stripped packet kernel), every variant against its
      twin on 2**18 pixel8 rays of the big room, exactly; then
      lab5_diag's main, counters zeroed before and read after;
- 15. the lab entry points through their public mains: kernel_lab, lab5
-     (room, g2, g4 x camera, pixel8, random x packet, dense, bvh at 2**18
-     rays: the dense/packet crossover), lab6 and profile_stages;
+ 15. the lab entry points through their public mains: lab_dense (kernel
+     A on the room's 2**20 camera and first-bounce rays, the big room's
+     2**20 camera rays and the large scene's 65,536: times, both bounds,
+     the shares of runs tested and staged from a counting launch),
+     kernel_lab, lab5 (room, g2, g4 x camera, pixel8, random x packet,
+     dense, bvh at 2**18 rays: the dense/packet crossover), lab6 and
+     profile_stages;
  16. the Renderer's oracle routes on the room at 64x64 @4 spp d8:
      intersector="bvh" (device and host tree) and "bruteforce"; their
      hits equal the brute force's, their frames each other's and the
@@ -114,6 +130,10 @@ import torch
 ROOM = (2, 8, 16)          # sphere_grid_scene(grid, n_lat, n_lon): 1,804 faces
 BIG_ROOM = (2, 16, 32)     # 7,692 faces, 8,192 padded
 LARGE = (4, 16, 32)        # 61,452 faces, 65,536 padded: the packet route
+# kernel A against its twin: rays of the full and half-masked batches,
+# and the big room's camera rays (the gated one-origin path)
+TWIN_RAYS = 65536
+GATED_CAMERA_RAYS = 1 << 20
 # kernel C against its twin: (rays, half of them masked)
 TWIN_BATCHES = ((65536, False), (1037, False), (65536, True))
 MEGA_ATOL = 1e-5
@@ -124,14 +144,9 @@ RAGGED = 1037              # paths of a batch that leaves a pool partial
 GRAD_RTOL = 1e-5
 LR = 1e-2
 
-# The peaks, the bound and the hit test's operation counts (OPS_ORIGIN,
-# OPS_DIRECTION) are tools/common.py's.
-# fp32 operations of a slab test of one ray against one chunk box
-# (csrc/packet.cu enter_box; the boxes come widened): 6 subtractions, 6
-# multiplies (min, max and comparisons not counted); and per live ray 3
-# reciprocals
-OPS_SLAB = 12
-OPS_RECIPROCALS = 3
+# The peaks, the bound and the operation counts of a pair test
+# (OPS_ORIGIN, OPS_DIRECTION) and of a slab test (OPS_SLAB,
+# OPS_RECIPROCALS) are tools/common.py's.
 # kernel D: the transform's share of the pair test (o' 18 + d' 15) runs
 # on the tensor cores, 3 TF32 passes for "highest"; the rest (t, u, v,
 # u + v: 6) on the CUDA cores
@@ -192,29 +207,21 @@ def bound(ops, nbytes):
     return common.bound(ops, nbytes)
 
 
-def pair_ops():
-    """fp32 operations of one (ray, triangle) pair test
-    (tools/common.py)."""
+def packet_work(rays, visits, pk):
+    """(operations, bytes) of the packet traversal's function on rays
+    [N, 8] whose visit counts are `visits`: per visited chunk tc pair
+    tests, o' at least once per (distinct origin, chunk) pair
+    (common.origin_visits), and per live ray one slab test of each of
+    the C boxes and its reciprocals. Bytes: rays [N, 8] read, (t, slot,
+    u, v, visits) written, the planes and the boxes read once."""
     from tinypathtracer_tpu_torch.tools import common
 
-    return common.OPS_ORIGIN + common.OPS_DIRECTION
-
-
-def dense_work(n, fp):
-    """(operations, bytes) of kernel A on n rays x fp slots: rays [N, 8]
-    read, (t, slot, u, v) written, the planes read once."""
-    return n * fp * pair_ops(), n * (32 + 16) + fp * 48
-
-
-def packet_work(visits, pk):
-    """(operations, bytes) of the packet traversal's function on rays
-    whose visit counts are `visits`: per visited chunk tc pair tests, and
-    per live ray one slab test of each of the C boxes and its
-    reciprocals. Bytes: rays [N, 8] read, (t, slot, u, v, visits)
-    written, the planes and the boxes read once."""
-    live = int((visits > 0).sum())
-    ops = (int(visits.sum()) * pk.tc * pair_ops()
-           + live * (pk.n_chunks * OPS_SLAB + OPS_RECIPROCALS))
+    live = visits > 0
+    ops = (common.pair_ops(int(visits.sum()) * pk.tc,
+                           common.origin_visits(rays[live, 0:3],
+                                                visits[live]) * pk.tc)
+           + int(live.sum()) * (pk.n_chunks * common.OPS_SLAB
+                                + common.OPS_RECIPROCALS))
     nbytes = (visits.shape[0] * (32 + 20) + pk.woop.n_padded * 48
               + pk.n_chunks * 32)
     return ops, nbytes
@@ -225,7 +232,9 @@ def rescan_ops(visits, pk):
     each visit a warp scans the C boxes again, lanes over boxes, for the
     ray's next key (the one scan per live ray is counted there) instead
     of keeping a sorted list."""
-    return int(visits.sum()) * pk.n_chunks * OPS_SLAB
+    from tinypathtracer_tpu_torch.tools import common
+
+    return int(visits.sum()) * pk.n_chunks * common.OPS_SLAB
 
 
 def check_equal(got, want, what, names):
@@ -252,6 +261,96 @@ def random_rays(n, gen, alive=None):
     d = torch.nn.functional.normalize(d, dim=1)
     a = torch.ones((n, 1)) if alive is None else alive.float()[:, None]
     return torch.cat([o, d, a, torch.zeros((n, 1))], dim=1)
+
+
+def box_face_rays(woop, tri_verts, gen, reps=4):
+    """rays [N, 8] from random origins in the room aimed at the vertices
+    and edge midpoints of the faces that set each SUPER run box's faces
+    (lab_dense.box_face_targets): their hits lie on a box face, where the
+    gate's slab test and the Woop test round differently."""
+    from tinypathtracer_tpu_torch.tools.lab_dense import box_face_targets
+
+    targets = box_face_targets(woop, tri_verts).cpu().repeat(reps, 1)
+    o = torch.rand(targets.shape, generator=gen) * 9.8 - 4.9
+    d = torch.nn.functional.normalize(targets - o, dim=1)
+    return torch.cat([o, d, torch.zeros((o.shape[0], 2))], dim=1)
+
+
+def dense_vs_twin(T, sky, dev):
+    """Phase 2: kernel A against its twin and its gate against the plain
+    model on the room, the big room and the large scene: outputs against
+    the ungated twin, exactly (on the gated scenes the gated twin, the
+    model, must equal it too), and the runs tested and staged against the
+    model's. Returns the max |uv| error."""
+    from tinypathtracer_tpu_torch.ops import dense
+    from tinypathtracer_tpu_torch.render.integrator import TraceData
+    from tinypathtracer_tpu_torch.tools.lab_dense import cell_inputs, counted
+
+    gen = torch.Generator().manual_seed(0)
+    err = 0.0
+    for name, grid in (("room", ROOM), ("big room", BIG_ROOM),
+                       ("large scene", LARGE)):
+        tv = TraceData.from_scene(T.sphere_grid_scene(
+            *grid, env_radiance=sky, device=dev)).tri_verts
+        woop = dense.precompute_woop(tv)
+        bare = dense.precompute_woop(tv, margin=0.0)
+        gated = dense.gated(woop)
+        half = torch.rand(TWIN_RAYS, generator=gen) < 0.5
+        batches = [
+            (f"{TWIN_RAYS} random rays", random_rays(TWIN_RAYS, gen), None),
+            (f"{RAGGED} random rays", random_rays(RAGGED, gen), None),
+            (f"{TWIN_RAYS} random rays, half masked",
+             random_rays(TWIN_RAYS, gen), half),
+            ("box-face rays", box_face_rays(woop, tv, gen), None)]
+        if grid == BIG_ROOM:
+            # the one-origin path under the gate at the main path's shape:
+            # the first camera lanes of the 512x512 @16 spp frame
+            _, rays, _ = cell_inputs(
+                "big_room.camera",
+                T.RenderConfig(width=512, height=512, spp=16, max_depth=8),
+                T.prng_key(0, dev), GATED_CAMERA_RAYS, 0, dev)
+            batches.append((f"{GATED_CAMERA_RAYS} camera rays", rays, None))
+        for what, rays, mask in batches:
+            rays = rays.to(dev)
+            mask = None if mask is None else mask.to(dev)
+            t0 = time.perf_counter()
+            got, tested, staged = counted(woop, rays, mask)
+            plain = dense.dense_hit(rays, woop, mask)
+            model, m_tested, m_staged = dense._dense_schedule(rays, woop,
+                                                              mask)
+            want = dense._dense_torch(rays, woop.planes, None, mask)
+            torch.cuda.synchronize()
+            label = f"kernel A vs twin, {name}, {what}"
+            names = ("t", "slot", "uv")
+            check_equal(got, want, label, names)
+            check_equal(plain, want, f"{label}, uncounted launch", names)
+            check_equal(model, want, f"{label}, schedule model (the "
+                        f"{'gated' if gated else 'ungated'} twin)", names)
+            check_equal([tested, staged], [m_tested, m_staged],
+                        f"{label}: runs tested and staged vs the schedule "
+                        "model", ("tested", "staged"))
+            err = max(err, max_abs_diff(got[2:], want[2:]))
+            runs = -(-woop.n_padded // dense.SUPER)
+            share_t = float(tested.float().mean()) / runs
+            share_s = float(staged.float().mean()) / runs
+            line = (f"{label} x {woop.n_padded} slots ({runs} runs, "
+                    f"{'gated' if gated else 'ungated'}): exact, against "
+                    f"the ungated twin; hit share "
+                    f"{float((got[1] >= 0).float().mean()):.4f}; runs "
+                    f"tested and staged = the schedule model's (shares "
+                    f"{share_t:.4f}, {share_s:.4f})")
+            if gated:
+                unw = dense.dense_hit(rays, bare, mask)
+                lost = (unw[1] != want[1]) | (unw[0] != want[0])
+                line += (f"; a gate on unwidened boxes would get "
+                         f"{int(lost.sum())} lanes wrong against the "
+                         f"ungated twin")
+            log(f"{line} ({time.perf_counter() - t0:.1f} s)")
+    regs, local, per_sm = dense.kernel_resources()
+    log(f"kernel A: {regs} registers, {local} B local memory per thread, "
+        f"{per_sm} blocks an SM ({dense.DENSE_THREADS} threads x "
+        f"{dense.DENSE_RAYS} rays)")
+    return err
 
 
 def packet_stagings(rays, pk):
@@ -311,24 +410,6 @@ def packet_vs_twin(pk, dev):
     return err
 
 
-def first_bounce_rays(state, cfg, o, d, keys):
-    """The rays of the first bounce after the camera query (origins at
-    the camera rays' hits, the BSDF directions) and their alive mask,
-    recorded from the modular loop's own queries on kernel A."""
-    from tinypathtracer_tpu_torch.ops.dense import closest_hit_dense
-    from tinypathtracer_tpu_torch.render.integrator import trace_paths
-
-    seen = []
-
-    def spy(o_, d_, mask=None):
-        seen.append((o_, d_, mask))
-        return closest_hit_dense(o_, d_, state.woop, mask=mask)
-
-    trace_paths(state.data, dataclasses.replace(cfg, max_depth=2), spy, o, d,
-                keys)
-    return seen[2]        # camera, extra emitter query, then bounce 1
-
-
 def packet_vs_dense(T, cfg, host_scene, key, dev):
     """Phase 10: kernel C against kernel A on one 2**20-lane camera chunk
     of the large scene and on its first-bounce rays, exactly; times of
@@ -341,6 +422,7 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
     from tinypathtracer_tpu_torch.ops import dense, packet
     from tinypathtracer_tpu_torch.render.renderer import (lane_rays,
                                                           prepare_state)
+    from tinypathtracer_tpu_torch.tools.lab_dense import first_bounce
 
     scene = host_scene.to(dev)
     state = prepare_state(scene, cfg)
@@ -349,7 +431,7 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
                                     margin=0.0)
     chunk = cfg.rays_per_dispatch // cfg.spp
     o, d, keys = lane_rays(scene, cfg, torch.arange(chunk, device=dev), key)
-    ob, db, alive = first_bounce_rays(state, cfg, o, d, keys)
+    ob, db, alive = first_bounce(state, cfg, o, d, keys)
     err, res = 0.0, {}
     for name, (oo, dd, mask) in (("camera", (o, d, None)),
                                  ("first-bounce", (ob, db, alive))):
@@ -360,7 +442,8 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
                          dim=1).contiguous()
         c_ms, got = cuda_ms(lambda: packet.packet_hit(
             rays, pk.woop.planes, pk.boxes, pk.tc), 5)
-        a_ms, want = cuda_ms(lambda: dense.dense_hit(rays, pk.woop.planes), 5)
+        a_ms, want = cuda_ms(lambda: dense.dense_hit(
+            rays, pk.woop, None if mask is None else mask.contiguous()), 5)
         live = a[:, 0] != 0
         check_equal([x[live] for x in got[:3]], [x[live] for x in want],
                     f"kernel C vs kernel A, {name} rays",
@@ -372,7 +455,7 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
         err = max(err, float((got[2][live] - want[2][live]).abs().max()))
         v = got[3][live].float()
         share = float((got[1][live] >= 0).float().mean())
-        work = packet_work(got[3], pk)
+        work = packet_work(rays, got[3], pk)
         res[name] = (c_ms, work)
         ops, nbytes = work
         log(f"kernel C vs kernel A, {name} rays: {n} lanes, "
@@ -471,7 +554,7 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
         f"{best * 1e3:.1f} ms, {n_rays / best:,.0f} rays/s, image mean "
         f"{float(img.mean()):.5f}; launches in 3 frames {frame_launches}")
     check_packet_route(frame_launches, "the large-scene frame")
-    mean_ms = log_packet_share("large-scene frame",
+    mean_ms = log_kernel_share("large-scene frame",
                                profile_step("large-scene frame", r.render,
                                             host_scene, key))
     mean_bound, count = frame_packet_bound(
@@ -512,7 +595,7 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
         f"{n_rays / best_step:,.0f} fwd+bwd camera rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB; launches in 4 steps {step_launches}")
     check_packet_route(step_launches, "the large-scene train step")
-    log_packet_share("large-scene train step",
+    log_kernel_share("large-scene train step",
                      profile_step("large-scene train step", step, params,
                                   state, scene, target, T.prng_key(1, dev)))
 
@@ -745,14 +828,15 @@ def profile_step(what, step, *args):
     return rows
 
 
-def log_packet_share(what, rows):
-    """Kernel C's device time in a profile: total and mean per launch.
-    Returns the mean per launch in ms."""
-    ms = sum(r[0] for r in rows if "packet_hit_kernel" in r[2])
-    count = sum(r[1] for r in rows if "packet_hit_kernel" in r[2])
+def log_kernel_share(what, rows, label="C", symbol="packet_hit_kernel"):
+    """A kernel's device time in a profile (kernel C's by default): total
+    and mean per launch. Returns the mean per launch in ms."""
+    ms = sum(r[0] for r in rows if symbol in r[2])
+    count = sum(r[1] for r in rows if symbol in r[2])
     if not count:
-        raise AssertionError(f"the profile of the {what} shows no kernel C")
-    log(f"  kernel C in the profiled {what}: {ms:.1f} ms in {count} "
+        raise AssertionError(f"the profile of the {what} shows no kernel "
+                             f"{label}")
+    log(f"  kernel {label} in the profiled {what}: {ms:.1f} ms in {count} "
         f"launches, {ms / count:.2f} ms a launch")
     return ms / count
 
@@ -767,7 +851,7 @@ def frame_packet_bound(render, pk):
 
     def recorded(rays, planes, boxes, tc):
         out = real(rays, planes, boxes, tc)
-        bounds.append(bound(*packet_work(out[3], pk))[0])
+        bounds.append(bound(*packet_work(rays, out[3], pk))[0])
         return out
 
     recorded.launches = 0       # _packet_cuda counts on the module's name
@@ -841,13 +925,14 @@ def lab4_work(n, fp, precision):
     written."""
     from tinypathtracer_tpu_torch.tools import common
 
-    pairs = n * fp
+    pairs = n * fp                  # lab4's rays: each from its own origin
     nbytes = n * (32 + 8) + fp * 48
     if precision is None:
-        return bound(pairs * pair_ops(), nbytes)
+        return bound(common.pair_ops(pairs, pairs), nbytes)
     passes = 3 if precision == "highest" else 1
     t_mma = pairs * OPS_TRANSFORM * passes / common.TF32_PEAK * 1e3
-    t_fp32 = pairs * (pair_ops() - OPS_TRANSFORM) / common.FP32_PEAK * 1e3
+    t_fp32 = (common.pair_ops(pairs, pairs) - pairs * OPS_TRANSFORM) \
+        / common.FP32_PEAK * 1e3
     t_bytes = nbytes / common.HBM_BYTES_PER_S * 1e3
     best = max(t_mma, t_fp32, t_bytes)
     return best, "bytes" if best == t_bytes else "operations"
@@ -867,8 +952,7 @@ def lab4_phase(dev):
         full = n == LAB4_BATCHES[-1]
         woop, rays, rays8 = lab4.test_data(n, LAB4_F, dev, seed=n)
         planes4, planesT = lab4.make_planes4(woop), lab4.make_planesT(woop)
-        a_ms, (ta, sa, _) = cuda_ms(lambda: dense.dense_hit(rays, woop.planes),
-                                    5)
+        a_ms, (ta, sa, _) = cuda_ms(lambda: dense.dense_hit(rays, woop), 5)
         e_ms, got = cuda_ms(lambda: lab4.vpu_rol_closest_hit(rays8, planesT),
                             5)
         e_plain, want = cuda_ms(lambda: lab4._vpu_rol_torch(rays8, planesT),
@@ -923,7 +1007,7 @@ def diag_phase(T, dev):
     pixel8 rays of the big room. Returns (walk ms, walk twin ms, max
     |err|, bound of the walk from its visits)."""
     from tinypathtracer_tpu_torch.models.envlight import gradient_sky
-    from tinypathtracer_tpu_torch.tools import lab5, lab5_diag as diag
+    from tinypathtracer_tpu_torch.tools import common, lab5, lab5_diag as diag
 
     scene = T.sphere_grid_scene(*BIG_ROOM, env_radiance=gradient_sky(16, 32),
                                 device=dev)
@@ -948,8 +1032,12 @@ def diag_phase(T, dev):
     r = rays.view(-1, diag.PACKET, 8)
     _, visits = diag.walk(r, planes, diag._keys(r, boxes)[2])
     c, cp = planes.shape[0] // diag.ROWS, boxes.shape[1]
-    ops = (int(visits.sum()) * diag.PACKET * diag.CHUNK * pair_ops()
-           + n * (cp * OPS_SLAB + OPS_RECIPROCALS))
+    # a packet's rays share an origin: o' at least once per (distinct
+    # origin, chunk)
+    ops = (common.pair_ops(int(visits.sum()) * diag.PACKET * diag.CHUNK,
+                           common.origin_visits(r[:, 0, 0:3], visits)
+                           * diag.CHUNK)
+           + n * (cp * common.OPS_SLAB + common.OPS_RECIPROCALS))
     nbytes = n * (32 + 4) + c * diag.ROWS * diag.CHUNK * 4 + cp * 32
     log(f"kernel F walk: {float(visits.float().mean()):.3f} chunk visits per "
         f"packet (max {int(visits.max())}); work {ops / 1e9:.3f} GFLOP, "
@@ -1047,7 +1135,8 @@ def main():
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    from tinypathtracer_tpu_torch.tools import lab4, lab5_diag, lab_mega
+    from tinypathtracer_tpu_torch.tools import (common, lab4, lab5_diag,
+                                                lab_dense, lab_mega)
     from tinypathtracer_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
@@ -1059,28 +1148,9 @@ def main():
 
     # ---- 2. kernel A vs its plain twin ------------------------------------
     sky = gradient_sky(64, 128)
+    err_a = dense_vs_twin(T, sky, dev)
     room = T.sphere_grid_scene(*ROOM, env_radiance=sky, device=dev)
-    data = TraceData.from_scene(room)
-    woop = dense.precompute_woop(data.tri_verts)
-    gen = torch.Generator().manual_seed(0)
-    err_a = 0.0
-    for n in (65536, 1037):
-        o = torch.rand((n, 3), generator=gen) * 9.0 - 4.5
-        d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
-                                          dim=1)
-        rays = torch.cat([o, d, torch.zeros((n, 2))], dim=1).to(dev)
-        kt, ks, kuv = dense.dense_hit(rays, woop.planes)
-        pt, ps, puv = dense._dense_torch(rays, woop.planes)
-        torch.cuda.synchronize()
-        if not (torch.equal(ks, ps) and torch.equal(kt, pt)
-                and torch.equal(kuv, puv)):
-            raise AssertionError(
-                f"kernel A != twin at n={n}: {int((ks != ps).sum())} slots, "
-                f"{int((kt != pt).sum())} t differ")
-        err_a = max(err_a, float((kuv - puv).abs().max()))
-        log(f"kernel A vs twin, {n} rays x {woop.n_faces} faces "
-            f"({woop.n_padded} slots): exact; hit share "
-            f"{float((ks >= 0).float().mean()):.4f}")
+    woop = dense.precompute_woop(TraceData.from_scene(room).tri_verts)
 
     # ---- 3. kernel B vs its plain twin ------------------------------------
     small = T.RenderConfig(width=64, height=64, spp=4, max_depth=8)
@@ -1121,6 +1191,10 @@ def main():
             f"d{cfg.max_depth}, {n_rays} camera rays: "
             f"best of 3 {best * 1e3:.1f} ms, {n_rays / best:,.0f} rays/s, "
             f"image mean {float(img.mean()):.5f}")
+    a_launch_ms = log_kernel_share(
+        "modular room frame", profile_step("modular room frame", r.render,
+                                           host_room, key),
+        "A", "dense_hit_kernel")
     img = images["megakernel"]
     if not (img.shape == (cfg.height, cfg.width, 3)
             and torch.isfinite(img).all()
@@ -1141,12 +1215,28 @@ def main():
         raise AssertionError("big-room frame is not a finite, lit image")
     log(f"main path, megakernel, 7,692-face room (8,192 slots): "
         f"{t_big * 1e3:.1f} ms, {n_rays / t_big:,.0f} rays/s")
+    a_before = dense.dense_hit.launches
+    r = T.Renderer(dataclasses.replace(cfg, megakernel=False), device="cuda")
+    t0 = time.perf_counter()
+    big_mod = r.render(big, key)
+    torch.cuda.synchronize()
+    t_big_mod = time.perf_counter() - t0
+    mx, share, mean = compare_images(big_img, big_mod)
+    log(f"main path, modular, 7,692-face room on the gated kernel A: "
+        f"{t_big_mod * 1e3:.1f} ms, {n_rays / t_big_mod:,.0f} rays/s, "
+        f"{dense.dense_hit.launches - a_before} launches; against the "
+        f"megakernel frame: max abs diff {mx:.3e}, share of pixels > 1e-5 "
+        f"{share:.2e}, mean abs diff {mean:.3e}")
+    if not (dense.dense_hit.launches > a_before and share <= 0.005
+            and mean < 1e-5):
+        raise AssertionError("big-room megakernel and modular frames "
+                             "disagree")
     launches = {"dense": dense.dense_hit.launches,
                 "mega": mega.mega_trace.launches}
     log(f"launches in the main path: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
-    del images, img, big_img, r
+    del images, img, big_img, big_mod, r
 
     # ---- 5. both kernels against their twins at the main path's shapes ----
     # one 2**20-lane chunk: its camera rays into kernel A, its rays8 / u8d
@@ -1156,7 +1246,7 @@ def main():
     rays = torch.cat([ops[0][0:3].T, ops[0][4:7].T,
                       torch.zeros((ops[0].shape[1], 2), device=dev)],
                      dim=1).contiguous()
-    a_ms, got = cuda_ms(lambda: dense.dense_hit(rays, woop.planes), 5)
+    a_ms, got = cuda_ms(lambda: dense.dense_hit(rays, woop), 5)
     a_plain, want = cuda_ms(lambda: dense._dense_torch(rays, woop.planes), 1,
                             warm=False)
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
@@ -1202,9 +1292,11 @@ def main():
         _, rounds = check_rounds(ops, 0, save, lengths,
                                  f"room, {h_hits.shape[1]}")
     log_lanes(lengths, rounds, 0, f"room, {h_hits.shape[1]} paths")
-    ops_b, bytes_b = lab_mega.mega_work(h_hits, ops[3], 8, 0, save_hits=False)
-    ops_h, bytes_h = lab_mega.mega_work(h_hits, ops[3], 8, 0, save_hits=True)
-    ops_a, bytes_a = dense_work(rays.shape[0], woop.n_padded)
+    ops_b, bytes_b = lab_mega.mega_work(ops[0], h_hits, ops[3], 8, 0,
+                                        save_hits=False)
+    ops_h, bytes_h = lab_mega.mega_work(ops[0], h_hits, ops[3], 8, 0,
+                                        save_hits=True)
+    ops_a, bytes_a = lab_dense.dense_pairs(rays, woop)
     bounds = {"dense": bound(ops_a, bytes_a), "mega": bound(ops_b, bytes_b),
               "mega_save_hits": bound(ops_h, bytes_h)}
     log(f"work per 2**20-lane chunk: kernel A {ops_a / 1e9:.2f} GFLOP, "
@@ -1255,6 +1347,13 @@ def main():
             and diag_launches["diag"]):
         raise AssertionError(f"a lab kernel never ran in its lab's main: "
                              f"{lab4_launches}, {diag_launches}")
+    zero_launches()
+    t0 = time.perf_counter()
+    dense_lab = lab_dense.main([])
+    log(f"lab_dense main: {time.perf_counter() - t0:.1f} s; launches "
+        f"{read_launches()}")
+    if not read_launches()["dense"]:
+        raise AssertionError("lab_dense's main never launched kernel A")
     run_main("kernel_lab main", kernel_lab.main, [])
     run_main("lab5 main", lab5.main, ["--scenes", "room,g2,g4", "--impls",
                                       "packet,dense,bvh",
@@ -1271,7 +1370,10 @@ def main():
          "replaces": "tinypathtracer_tpu/ops/dense.py:197",
          "launches": launches["dense"], "max_abs_err": err_a,
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": bounds["dense"][0],
-         "bound_by": bounds["dense"][1], "library_ms": None},
+         "bound_by": bounds["dense"][1], "library_ms": None,
+         "modular_frame_ms_per_launch": a_launch_ms,
+         **{f"{cell}.{k}": dense_lab[cell][k] for cell in lab_dense.CELLS
+            for k in ("ms", "tested_bound_ms", "tested_share")}},
         {"name": "mega_trace", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",

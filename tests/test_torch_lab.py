@@ -31,7 +31,8 @@ from tinypathtracer_tpu.tools import lab5 as jlab5
 from tinypathtracer_tpu.tools import lab5_diag as jdiag
 from tinypathtracer_tpu_torch.ops import dense
 from tinypathtracer_tpu_torch.tools import (kernel_lab, lab4, lab5, lab5_diag,
-                                            lab6, lab_mega, profile_stages)
+                                            lab6, lab_dense, lab_mega,
+                                            profile_stages)
 
 from _torch_scenes import jax_scene, port_scene
 
@@ -82,7 +83,7 @@ def test_kernel_e_twin_equals_jax_and_kernel_a():
     t, fid = lab4.vpu_rol_closest_hit(rays8, planesT, tc=128)
     assert np.array_equal(t.numpy(), np.asarray(want_t)[0])
     assert np.array_equal(fid.numpy(), np.asarray(want_f)[0])
-    ta, sa, _ = dense.dense_hit(rays, woop.planes)
+    ta, sa, _ = dense.dense_hit(rays, woop)
     assert torch.equal(t, ta) and torch.equal(fid, sa)
     assert 0.3 < float((fid >= 0).float().mean()) < 1.0
     # tc tiles the work only
@@ -233,6 +234,8 @@ MAINS = {
     "lab5_diag": (lab5_diag, ["--n", "256", "--n-lat", "10", "--n-lon", "16"],
                   [f"{v}_{s}" for v in lab5_diag.VARIANTS
                    for s in ("ms", "ns_per_packet")]),
+    "lab_dense": (lab_dense, ["--n", "256", "--large-n", "256"],
+                  ["n", "large_n"]),
     "lab_mega": (lab_mega, ["--n", "64", "--scenes", "room"], ["n"]),
     "lab6": (lab6, ["--n", "256", "--width", "16", "--height", "16",
                     "--spp", "1", "--depth", "3"],
@@ -277,6 +280,21 @@ def test_lab_main_runs_on_the_cpu(name, capsys):
             assert 0 < cell["eff_pool"] <= 1 and 1 <= cell["rounds_max"] <= 9
         assert (res["room.lights3"]["fwd_bound_ms"]
                 > res["room.lights0"]["fwd_bound_ms"])
+    if name == "lab_dense":
+        for cell_name in lab_dense.CELLS:
+            cell = res[cell_name]
+            gated = cell_name != "room.camera" and cell_name != "room.bounce"
+            assert cell["gated"] == gated and cell["regs"] is None
+            assert cell["ms"] > 0 and 0 < cell["tested_share"] <= 1
+            assert cell["staged_share"] >= cell["tested_share"]
+        for cell_name in ("room.camera", "room.bounce"):
+            cell = res[cell_name]
+            assert cell["tested_share"] == cell["staged_share"] == 1.0
+            assert cell["tested_bound_ms"] <= cell["bound_ms"]
+        assert (res["large.camera"]["tested_bound_ms"]
+                < 0.5 * res["large.camera"]["bound_ms"])
+        assert 0 < res["room.bounce"]["live_share"] <= 1.0
+        assert res["large.camera"]["tested_share"] < 0.5
 
 
 def test_lab_mega_variants_edit_the_kernel_source():
@@ -293,6 +311,22 @@ def test_lab_mega_variants_edit_the_kernel_source():
         assert text != src, name
     with pytest.raises(ValueError, match="card only"):
         lab_mega.main(["--device", "cpu", "--variants"])
+
+
+def test_lab_dense_variants_edit_the_kernel_source():
+    """Every variant lab_dense --variants builds edits text that
+    csrc/dense.cu holds exactly once; --variants refuses the CPU."""
+    from tinypathtracer_tpu_torch.utils import cuda_build
+
+    src = (cuda_build.CSRC / "dense.cu").read_text()
+    for name, edits in lab_dense.VARIANTS.items():
+        text = src
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert text != src, name
+    with pytest.raises(ValueError, match="card only"):
+        lab_dense.main(["--device", "cpu", "--variants"])
 
 
 @pytest.mark.parametrize("n,blocks", [(1024, 8), (96, 96), (60, 1)])

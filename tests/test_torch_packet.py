@@ -139,7 +139,7 @@ def test_kernel_outputs_equal_kernel_a(large):
         [o, d, alive[:, None], np.zeros((300, 1), np.float32)], axis=1))
     t, slot, uv, visits = packet.packet_hit(rays, pk.woop.planes, pk.boxes,
                                             pk.tc)
-    dt, dslot, duv = dense.dense_hit(rays, pk.woop.planes)
+    dt, dslot, duv = dense.dense_hit(rays, pk.woop)
     live = torch.from_numpy(alive != 0)
     assert torch.equal(t[live], dt[live]) and torch.equal(slot[live],
                                                           dslot[live])
@@ -300,7 +300,7 @@ def test_schedule_model_ties_go_to_lowest_slot(slot):
     rays = _ray_table(o, d, np.ones(256, bool))
     got, _, _ = packet._packet_schedule(rays, pk.woop.planes, pk.boxes,
                                         pk.tc, 32)
-    want = dense.dense_hit(rays, pk.woop.planes)
+    want = dense.dense_hit(rays, pk.woop)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert (got[1] == slot).sum() > 20 and not (got[1] == dup).any()

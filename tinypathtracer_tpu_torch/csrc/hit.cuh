@@ -1,5 +1,5 @@
 // Woop hit test shared by the port's kernels (dense.cu, mega.cu,
-// packet.cu).
+// packet.cu), and the reciprocal of their slab tests.
 //
 // A triangle is 12 plane floats (W[0, 0:3], c0, W[1, 0:3], c1, W[2, 0:3],
 // c2): o' = W o + c, d' = W d, t = -o'z / d'z, u = o'x + t d'x,
@@ -75,6 +75,13 @@ __device__ __forceinline__ bool hit_terms(const Origin& op, float dx,
   u = fmaf(t, dpx, op.x);
   v = fmaf(t, dpy, op.y);
   return (u >= 0.f) & (v >= 0.f) & (u + v <= 1.f) & (t > kDelta);
+}
+
+// 1 / d, or the huge finite REAL_MAX for a zero component, so that
+// 0 * REAL_MAX is 0 and a ray parallel to a slab never culls a box it lies
+// in (the slab tests of dense.cu and packet.cu).
+__device__ __forceinline__ float reciprocal(float d) {
+  return d == 0.f ? kRealMax : 1.f / d;
 }
 
 }  // namespace tpt

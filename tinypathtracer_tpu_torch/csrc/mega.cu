@@ -60,6 +60,7 @@
 #include <cstdint>
 
 #include "hit.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -208,10 +209,6 @@ constexpr size_t ring_bytes(int lights) {
   return static_cast<size_t>(stages(lights)) * kTile * 48;
 }
 
-__device__ __forceinline__ uint32_t smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // The planes' ring: kStages buffers of kTile slots in dynamic shared
 // memory, an mbarrier each. Tile g of the sweep sequence (tile g mod nt of
 // every round) lands in buffer g mod kStages, in its mbarrier's phase
@@ -222,37 +219,13 @@ __device__ __forceinline__ float* tile_buffer(int s) {
   return reinterpret_cast<float*>(dyn) + 12 * kTile * s;
 }
 
-// One thread: copy tile t (its slots, 48 B each) into buffer s. The
-// buffer's last readers are behind a __syncthreads; the proxy fence
-// orders their reads before the copy's writes.
+// One thread: copy tile t (its slots, 48 B each) into buffer s.
 __device__ __forceinline__ void stage(const float* planes, int fp, int t,
                                       int s, uint64_t* bars) {
   const uint32_t bytes = static_cast<uint32_t>(min(kTile, fp - t * kTile)) *
                          48u;
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem(bars + s)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem(tile_buffer(s))),
-      "l"(reinterpret_cast<uint64_t>(planes + 12 * static_cast<size_t>(t) *
-                                                   kTile)),
-      "r"(bytes), "r"(smem(bars + s))
-      : "memory");
-}
-
-__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
+  tpt::bulk_copy(tile_buffer(s), planes + 12 * static_cast<size_t>(t) * kTile,
+                 bytes, bars + s);
 }
 
 // Thread 0 starts the ring: every tile of a resident scene, else the first
@@ -261,17 +234,13 @@ template <int kStages>
 __device__ __forceinline__ void start_ring(const float* planes, int fp,
                                            int nt, uint64_t* bars) {
   if (threadIdx.x == 0) {
-    for (int k = 0; k < kStages; ++k)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem(bars + k))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tpt::init_barriers(bars, kStages);
     const int copies = nt <= kStages ? nt : kStages;
     for (int k = 0; k < copies; ++k) stage(planes, fp, k, k, bars);
   }
   __syncthreads();
   if (nt <= kStages)
-    for (int k = 0; k < nt; ++k) wait_phase(bars + k, 0);
+    for (int k = 0; k < nt; ++k) tpt::wait_parity(bars + k, 0);
 }
 
 // The copies still in flight when the block ends (tiles g .. g + kStages
@@ -282,7 +251,7 @@ __device__ __forceinline__ void drain_ring(int nt, unsigned g,
                                           uint64_t* bars) {
   if (nt <= kStages) return;
   for (unsigned k = g; k < g + kStages; ++k)
-    wait_phase(bars + k % kStages, (k / kStages) & 1u);
+    tpt::wait_parity(bars + k % kStages, (k / kStages) & 1u);
 }
 
 // One sweep over all triangles for every lane's queries from its origin
@@ -309,7 +278,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ planes,
   const bool ring = nt > kStages;  // else resident
   for (int t = 0; t < nt; ++t) {
     const int s = ring ? static_cast<int>(g % kStages) : t;
-    if (ring) wait_phase(bars + s, (g / kStages) & 1u);
+    if (ring) tpt::wait_parity(bars + s, (g / kStages) & 1u);
     const int f0 = t * kTile, cnt = min(kTile, fp - f0);
     const float* src = tile_buffer(s);
     if (active) {

@@ -60,6 +60,7 @@
 #include <cstdint>
 
 #include "hit.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -87,13 +88,6 @@ struct Block {
   unsigned red[2][kWarps];  // partial picks, alternating
   int count[kWarps];        // waiting rays per warp
 };
-
-// 1 / d, or the huge finite REAL_MAX for a zero component, so that
-// 0 * REAL_MAX is 0 and a ray parallel to a slab never culls a box it lies
-// in.
-__device__ __forceinline__ float reciprocal(float d) {
-  return d == 0.f ? tpt::kRealMax : 1.f / d;
-}
 
 // Slab test of a ray against a chunk box lo = (bmin x, bmin y, bmin z,
 // bmax x), hi = (bmax y, bmax z, validity, 0). Returns whether the ray
@@ -203,40 +197,12 @@ __device__ __forceinline__ int pick_chunk(const int* hist, int n_chunks,
   return best == 0 ? -1 : static_cast<int>(kIdMask - (best & kIdMask));
 }
 
-__device__ __forceinline__ uint32_t smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // One thread: copy chunk ck's tc x 48 B of planes into buf, completing on
-// bar. The buffer's last readers are behind a __syncthreads; the proxy
-// fence orders their reads before the copy's writes.
+// bar.
 __device__ __forceinline__ void stage(float* buf, const float* planes,
                                       int ck, int tc, uint64_t* bar) {
-  const uint32_t bytes = static_cast<uint32_t>(tc) * 48u;
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem(bar)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem(buf)),
-      "l"(reinterpret_cast<uint64_t>(planes + 12 * static_cast<size_t>(ck) *
-                                                   tc)),
-      "r"(bytes), "r"(smem(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wait_stage(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
+  tpt::bulk_copy(buf, planes + 12 * static_cast<size_t>(ck) * tc,
+                 static_cast<uint32_t>(tc) * 48u, bar);
 }
 
 // One warp: the cnt <= R listed rays rs[0..cnt) against the staged chunk
@@ -345,9 +311,9 @@ __global__ void __launch_bounds__(kBlock, 3)
   }
   s.ox[tid] = r[0]; s.oy[tid] = r[1]; s.oz[tid] = r[2];
   s.dx[tid] = r[3]; s.dy[tid] = r[4]; s.dz[tid] = r[5];
-  s.ivx[tid] = reciprocal(r[3]);
-  s.ivy[tid] = reciprocal(r[4]);
-  s.ivz[tid] = reciprocal(r[5]);
+  s.ivx[tid] = tpt::reciprocal(r[3]);
+  s.ivy[tid] = tpt::reciprocal(r[4]);
+  s.ivz[tid] = tpt::reciprocal(r[5]);
   s.best_t[tid] = tpt::kRealMax;
   s.best[tid] = -1;
   s.best_u[tid] = 0.f;
@@ -355,13 +321,7 @@ __global__ void __launch_bounds__(kBlock, 3)
   s.visits[tid] = 0;
   s.live[tid] = i < n && r[6] != 0.f;
   s.next[tid] = kNone;
-  if (tid == 0) {
-    for (int k = 0; k < 2; ++k)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem(&s.bar[k]))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) tpt::init_barriers(s.bar, 2);
   __syncthreads();
   // every live ray's first key (entry bits > 0 = last), kMaxRays rays a
   // warp at a time
@@ -411,7 +371,7 @@ __global__ void __launch_bounds__(kBlock, 3)
     const bool waiting = chunk_of(s.next[tid]) == cur;
     const unsigned m = __ballot_sync(kFull, waiting);
     if (lane == 0) s.count[warp] = __popc(m);
-    wait_stage(&s.bar[b], (parity >> b) & 1u);
+    tpt::wait_parity(&s.bar[b], (parity >> b) & 1u);
     parity ^= 1u << b;
     __syncthreads();
     int base = 0, total = 0;

@@ -49,17 +49,16 @@ import functools
 
 import torch
 
-from tinypathtracer_tpu_torch.ops.dense import (CLUSTER, WoopTris, face_hits,
-                                                hit_terms, origin_terms,
-                                                precompute_woop)
+from tinypathtracer_tpu_torch.ops.dense import (BOX_MARGIN, CLUSTER, WoopTris,
+                                                face_hits, hit_terms,
+                                                origin_terms, precompute_woop,
+                                                reciprocals, slab, winner_uv)
 from tinypathtracer_tpu_torch.utils import cuda_build
 from tinypathtracer_tpu_torch.utils.math3d import DELTA, REAL_MAX
 
 # Triangles per chunk (the JAX package's default `packet_tc`); it halves
 # down to CLUSTER until it divides the padded face count.
 PACKET_TC = 512
-# Box margin, relative to max(1, |bmin| + |bmax|) over the axes
-BOX_MARGIN = 1e-5
 _I32_MAX = 2**31 - 1
 # rays (and threads) per block of kernel C: csrc/packet.cu kBlock
 PACKET_BLOCK = 256
@@ -98,7 +97,7 @@ def precompute_packet(tri_verts, tc: int = PACKET_TC,
     widened by `margin` times max(1, |bmin| + |bmax|) (0: the JAX
     package's boxes). The morton order and the planes are
     `precompute_woop`'s, shared with kernel A."""
-    woop = precompute_woop(tri_verts)
+    woop = precompute_woop(tri_verts, margin)
     fp = woop.n_padded
     while fp % tc:
         tc //= 2
@@ -118,23 +117,10 @@ def precompute_packet(tri_verts, tc: int = PACKET_TC,
     return PacketTris(woop=woop, boxes=boxes.contiguous(), tc=tc)
 
 
-def _reciprocals(d):
-    """1 / d per component, correctly rounded (the float64 quotient
-    rounded to float32), REAL_MAX where the component is zero."""
-    zero = d == 0.0
-    inv = (1.0 / torch.where(zero, 1.0, d).double()).float()
-    return torch.where(zero, REAL_MAX, inv)
-
-
 def _slab(rays, boxes):
     """(entry [N, C], entered [N, C] bool) of rays [N, 8] against the
-    boxes. NaN-ignoring min and max, as CUDA's fminf / fmaxf."""
-    o, iv = rays[:, None, 0:3], _reciprocals(rays[:, 3:6])[:, None]
-    t0 = (boxes[:, 0:3] - o) * iv                         # [N, C, 3]
-    t1 = (boxes[:, 3:6] - o) * iv
-    lo, hi = torch.fmin(t0, t1), torch.fmax(t0, t1)
-    near = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]), lo[..., 2])
-    far = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
+    boxes."""
+    near, far = slab(rays[:, 0:3], reciprocals(rays[:, 3:6]), boxes)
     entry = torch.fmax(near, torch.full_like(near, DELTA))
     entered = ((far >= entry) & (boxes[:, 6] != 0.0)[None]
                & (rays[:, 6] != 0.0)[:, None])
@@ -219,16 +205,7 @@ def _packet_torch(rays, planes, boxes, tc: int):
         chunk_t[ray_i, chunk] = pt
         chunk_s[ray_i, chunk] = ps
         t[rs], slot[rs], visits[rs] = _walk(entry, entered, chunk_t, chunk_s)
-    return t, slot.int(), _winner_uv(rays, planes, slot), visits
-
-
-def _winner_uv(rays, planes, slot):
-    """[N, 2] (u, v) of each ray's winning slot, recomputed with the
-    walk's arithmetic; 0 where slot is -1."""
-    w = list(planes[torch.clamp_min(slot, 0)].T)
-    o, d = rays[:, 0:3].T, rays[:, 3:6].T
-    _, u, v = hit_terms(origin_terms(*o, w), *d, w)
-    return torch.where((slot >= 0)[:, None], torch.stack([u, v], dim=1), 0.0)
+    return t, slot.int(), winner_uv(rays, planes, slot), visits
 
 
 def _pick(hist):
@@ -339,7 +316,7 @@ def _packet_schedule(rays, planes, boxes, tc: int, block: int = PACKET_BLOCK):
     slot = torch.where(t < REAL_MAX, best_s[:n], -1)
     served = (torch.stack(served, dim=1) if served
               else torch.zeros((nb, 0), dtype=torch.int32, device=dev))
-    return ((t, slot.int(), _winner_uv(rays, planes, slot), visits[:n]),
+    return ((t, slot.int(), winner_uv(rays, planes, slot), visits[:n]),
             stagings, served)
 
 

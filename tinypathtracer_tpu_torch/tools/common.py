@@ -26,10 +26,59 @@ HBM_BYTES_PER_S = 3.35e12
 # counted as 2 and the IEEE divide as 1 (the least it can cost; the
 # compiler's divide is a sequence of ~10 instructions), comparisons not
 # counted: o' = W o + c is 3 x (1 mul + 2 FMA) + 3 adds = 18 per
-# (origin, triangle); a direction against it is d' = W d (15), t (1),
-# u and v (2 FMA = 4), u + v (1) = 21 per (direction, triangle)
+# (origin, triangle), needed once for each distinct origin; a direction
+# against it is d' = W d (15), t (1), u and v (2 FMA = 4), u + v (1) = 21
+# per (ray, triangle)
 OPS_ORIGIN = 18
 OPS_DIRECTION = 21
+# fp32 operations of a slab test of one ray against one box (kernel A's
+# run boxes, kernel C's chunk boxes; the boxes come widened): 6
+# subtractions, 6 multiplies (min, max and comparisons not counted); and
+# per ray its 3 reciprocals
+OPS_SLAB = 12
+OPS_RECIPROCALS = 3
+
+
+def pair_ops(pairs, origin_pairs):
+    """fp32 operations of `pairs` (ray, triangle) tests whose rays leave
+    from origins that make `origin_pairs` distinct (origin, triangle)
+    pairs: o' once per distinct pair, the rest per ray."""
+    return pairs * OPS_DIRECTION + origin_pairs * OPS_ORIGIN
+
+
+def origin_ids(origins):
+    """(ids [N] i64 of the rows of origins [N, 3] among its distinct
+    rows, the number of distinct rows)."""
+    if origins.shape[0] == 0:
+        return origins.new_zeros((0,), dtype=torch.int64), 0
+    _, ids = torch.unique(origins, dim=0, return_inverse=True)
+    return ids, int(ids.max()) + 1
+
+
+def origin_visits(origins, visits):
+    """Sum over the distinct rows of origins [N, 3] of the most chunks
+    [N] a ray from that origin visited: the least number of distinct
+    (origin, chunk) pairs of a walk with these visit counts (rays from
+    one origin may visit different chunks; this counts the ones the
+    furthest of them needs)."""
+    ids, count = origin_ids(origins)
+    most = visits.new_zeros((count,)).scatter_reduce_(0, ids, visits, "amax")
+    return int(most.sum())
+
+
+def dense_work(n, faces, pairs, origin_pairs, slab_tests=0, live=0):
+    """(operations, bytes) of kernel A's function on n rays against
+    `faces` triangles: `pairs` (ray, triangle) tests, `origin_pairs`
+    distinct (origin, triangle) transforms, and with a gate its
+    `slab_tests` (ray x run box tests) and the reciprocals of its `live`
+    rays. Bytes: rays [N, 8] read, (t, slot, u, v) written, the faces'
+    planes read once (padding slots need no work).
+    tools/lab_dense.dense_pairs counts the pairs of both readings: all
+    pairs, the same work whatever implements it, and the pairs in the
+    runs a gated launch tested."""
+    reciprocals = live * OPS_RECIPROCALS if slab_tests else 0
+    return (pair_ops(pairs, origin_pairs) + slab_tests * OPS_SLAB
+            + reciprocals, n * (32 + 16) + faces * 48)
 
 
 def bound(ops, nbytes):

@@ -268,7 +268,7 @@ def check_correctness(n=4096, f=1948, dev=torch.device("cuda")):
     same rays: the share of equal slots and the max |dt| on hits.
     Returns {label: (share, max |dt|)}."""
     woop, rays, rays8 = test_data(n, f, dev)
-    t_ref, slot_ref, _ = dense.dense_hit(rays, woop.planes)
+    t_ref, slot_ref, _ = dense.dense_hit(rays, woop)
     planes4 = make_planes4(woop)
     res = {}
     for label, (t, fid) in (
@@ -309,7 +309,7 @@ def vpu_rol_rate(n=1 << 20, f=1948, tc=512, dev=torch.device("cuda"),
 def baseline_rate(n=1 << 20, f=1948, dev=torch.device("cuda"), reps=10):
     """(ms per call, pairs/s) of kernel A, the production dense kernel."""
     woop, rays, _ = test_data(n, f, dev)
-    return _rate(lambda: dense.dense_hit(rays, woop.planes), n,
+    return _rate(lambda: dense.dense_hit(rays, woop), n,
                  woop.n_padded, dev, reps)
 
 

@@ -136,12 +136,14 @@ def with_lights(scene, count: int = LIGHTS):
         scene, **{k: v[:count].to(dev) for k, v in lights.items()})
 
 
-def mega_work(hits, shadeT, depth, n_lights, save_hits):
-    """(operations, bytes) of kernel B on the paths whose residuals are
-    `hits` (from the save_hits instance on the same inputs: both
-    instances trace the same queries). Counted from this run's data: the
-    camera query of every lane, then per bounce on each live lane (hit,
-    not emissive) one origin transform per slot, the next-direction
+def mega_work(rays8, hits, shadeT, depth, n_lights, save_hits):
+    """(operations, bytes) of kernel B on the paths whose camera rays are
+    rays8 [8, N] and whose residuals are `hits` (from the save_hits
+    instance on the same inputs: both instances trace the same queries).
+    Counted from this run's data: the camera query of every lane (one
+    origin transform per slot for each distinct camera origin), then
+    per bounce on each live lane (hit, not emissive) one origin
+    transform per slot, the next-direction
     query (not on the last bounce), the extra emitter query on diffuse
     lanes, and each delta light: a full sweep where unoccluded, at least
     one test where occluded (the sweep stops at its first occluder).
@@ -154,7 +156,8 @@ def mega_work(hits, shadeT, depth, n_lights, save_hits):
     live = (slot >= 0) & (shadeT[24][s] <= 0.0)
     diffuse = ~((shadeT[25][s] >= 1.0) | (shadeT[26][s] > 0.0))
     occ = rows[:, 5].long()
-    origins, directions = n * fp, n * fp              # the camera query
+    origins = common.origin_ids(rays8[0:3].T)[1] * fp   # the camera query
+    directions = n * fp
     for dep in range(depth):
         lv = live[dep]
         origins += int(lv.sum()) * fp
@@ -290,8 +293,8 @@ def measure(ops, depth, n_lights, dev, reps):
             lambda: mega.mega_trace(*ops, depth=depth,      # noqa: B023
                                     n_lights=n_lights, save_hits=save),
             dev, reps)
-        b_ms, b_by = common.bound(*mega_work(hits, ops[3], depth, n_lights,
-                                             save))
+        b_ms, b_by = common.bound(*mega_work(ops[0], hits, ops[3], depth,
+                                             n_lights, save))
         cell[f"{inst}_bound_ms"], cell[f"{inst}_bound_by"] = b_ms, b_by
         regs, local = (mega.kernel_resources(n_lights, save)
                        if dev.type == "cuda" else (None, None))
