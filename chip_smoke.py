@@ -109,7 +109,32 @@ non-zero):
      dense frame's within 1e-5 but for at most ORACLE_EDGE_PIXELS tied
      edge pixels (counted), kernels A
      and B launch 0 times; the stack guard refuses a tree one level too
-     deep for the stack.
+     deep for the stack;
+ 17. the scene-file entry point: the room, the 3-light room and the
+     large scene written as glTF (write_gltf), loaded through load_scene
+     and flattened onto the card, each equal to its procedural arrays;
+     the loaded room's 512x512 @16 spp d8 reference frame through the
+     one-shot render (megakernel), bit-equal to phase 4's;
+ 18. the three physical frames at full width through render(...,
+     mode="physical"), launch counters zeroed before each scene's three
+     frames and read after: kernel A (room, 3-light room) or C (large
+     scene) exactly 8 x (3 + L) x 4 launches a frame, kernel B none;
+     best of 3, spread, rays/s, one profiled frame of the room and of
+     the large scene;
+ 19. kernel A against its twin on one 2**20-lane chunk's
+     environment-NEE and area-NEE queries (masked to the diffuse lanes)
+     of the physical room, bounces 0 and 1, kernel C on the large
+     scene's (bounce 0), captured from the frame's trace; exactly;
+ 20. the large physical frame forced onto kernel A: bit-equal to the
+     packet frame;
+ 21. a 64x64 @4 spp d8 physical room frame on kernel A against the
+     bruteforce route: every query of the kernel A trace answered by
+     both, and where their faces differ one hit must be a self-hit
+     (within SELF_HIT_T of the origin: a ray grazing the surface it
+     leaves); the frames within 1e-5 but on at most
+     PHYSICAL_ORACLE_PIXELS counted pixels;
+ 22. the physical room's train step at full width: a warm-up with its
+     gradients checked finite, 3 timed steps, peak memory.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s;
@@ -118,13 +143,17 @@ lines are the kernels JSON, the card's name and power limit, and the
 result JSON.
 """
 
+import base64
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOM = (2, 8, 16)          # sphere_grid_scene(grid, n_lat, n_lon): 1,804 faces
@@ -162,6 +191,17 @@ LAB4_LIMITS = {"highest": (0.999, 1e-2, 0.999),
 LAB4_BATCHES = (65536, 1037, 1 << 20)
 LAB_RAYS = 1 << 18
 ORACLE = dict(width=64, height=64, spp=4, max_depth=8)
+# a hit closer than this to its ray's origin is a self-hit: a ray grazing
+# the surface it leaves (or, on a coarse sphere, the neighbouring facet),
+# reported past the DELTA (2e-4) cutoff by one intersector's rounding and
+# not by the other's (phase 21; measured up to 1.45e-3)
+SELF_HIT_T = 5e-3
+# pixels of the physical oracle frame allowed beyond 1e-5 of the kernel A
+# frame: the NEE terms (1 / dist^2 and cosines near the emissive panel,
+# self-hits) turn the two routes' ulp-level parting into more than 1e-5
+# on a few paths (18 pixels on the H100 and 17 on the CPU at this key,
+# max 2.0e-2; twice that allowed)
+PHYSICAL_ORACLE_PIXELS = 36
 # pixels of the oracle frame allowed beyond 1e-5 of the dense frame: the
 # brute force and kernel A test a ray against a triangle by different
 # arithmetic, and take different faces where two are tied at an edge
@@ -171,6 +211,168 @@ ORACLE_EDGE_PIXELS = 6
 
 def log(*args):
     print(*args, flush=True)
+
+
+# ---- glTF documents of procedural scenes -----------------------------------
+# The smoke run and the tests (tests/_torch_scenes.py) write the scenes
+# they load: a glTF 2.0 JSON document with one data-URI buffer.
+
+def _quat_of(rot) -> list:
+    """A quaternion (x, y, z, w) whose quat_to_mat3 (the reference's, not
+    normalised) is the 3x3 rotation rot (float64)."""
+    m = np.asarray(rot, np.float64)
+    w = math.sqrt(max(0.0, 1.0 + m[0, 0] + m[1, 1] + m[2, 2])) / 2.0
+    x = math.sqrt(max(0.0, 1.0 + m[0, 0] - m[1, 1] - m[2, 2])) / 2.0
+    y = math.sqrt(max(0.0, 1.0 - m[0, 0] + m[1, 1] - m[2, 2])) / 2.0
+    z = math.sqrt(max(0.0, 1.0 - m[0, 0] - m[1, 1] + m[2, 2])) / 2.0
+    x = math.copysign(x, m[2, 1] - m[1, 2])
+    y = math.copysign(y, m[0, 2] - m[2, 0])
+    z = math.copysign(z, m[1, 0] - m[0, 1])
+    return [x, y, z, w]
+
+
+def _quat_aiming(d) -> list:
+    """A quaternion whose quat_to_mat3 (not normalised) maps -z onto d,
+    of any length (glTF lights shine down -z): its third column,
+    (2(xz + wy), 2(yz - wx), 1 - 2(x^2 + y^2)), is c = -d. With x = y = r
+    a zero component of c comes out exactly zero."""
+    cx, cy, cz = (-float(v) for v in d)
+    s = (1.0 - cz) / 2.0                 # x^2 + y^2
+    if s == 0.0:
+        return [0.0, 0.0, 0.0, 0.0]
+    r = 0.5 if s == 0.5 else math.sqrt(s / 2.0)
+    return [r, r, (cx + cy) / (4.0 * r), (cx - cy) / (4.0 * r)]
+
+
+def _spot_cone(cos_outer: float, inv_cone: float) -> dict:
+    """innerConeAngle and outerConeAngle that read back (as the reader
+    computes them: cos(outer), 1 / (cos(inner) - cos(outer))) to these
+    float32 values."""
+    want = (np.float32(cos_outer), np.float32(inv_cone))
+    if inv_cone <= 0.0:
+        raise ValueError(f"a spot cone needs inv_cone > 0, got {inv_cone}")
+    for c in (cos_outer, 1.0 - 1.0 / inv_cone):
+        outer = math.acos(c)
+        inner = math.acos(min(1.0, c + 1.0 / inv_cone))
+        got = (np.float32(np.cos(outer)),
+               np.float32(1.0 / (np.cos(inner) - np.cos(outer))))
+        if got == want:
+            return {"innerConeAngle": inner, "outerConeAngle": outer}
+    raise ValueError(f"no cone angles read back to {want}")
+
+
+def _f(x) -> list:
+    """float32 values as JSON floats (exact: a double holds them)."""
+    return [float(v) for v in np.asarray(x, np.float32).reshape(-1)]
+
+
+def gltf_document(arrays: dict) -> dict:
+    """A glTF document that `load_scene(...).flatten(env)` turns back into
+    the scene of `arrays` (a FlatScene's fields as numpy arrays, one
+    object with an identity transform, as `sphere_grid_scene` makes):
+    the same world vertices, normals and faces in the same order, the
+    same material, delta-light and camera values; only the object
+    tables differ (a mesh per run of faces of one material). Materials
+    that no face uses are not written (the reader keeps only the
+    materials of meshes), so material indices may shift. Each light is
+    a KHR_lights_punctual node whose rotation aims -z at its direction;
+    each value reads back to the same float32."""
+    mats = np.asarray(arrays["vert_mats"])
+    if not np.array_equal(mats, np.broadcast_to(np.eye(4), mats.shape)):
+        raise ValueError("gltf_document writes scenes of identity objects")
+    idx = np.asarray(arrays["indices"], np.int64)
+    fm = np.asarray(arrays["face_mtl"])
+    cut = np.flatnonzero(np.diff(fm)) + 1
+    runs = np.split(np.arange(len(fm)), cut)
+    starts = [int(idx[r].min()) for r in runs] + [len(arrays["vertices"])]
+    blob, views, accessors, meshes, nodes = bytearray(), [], [], [], []
+
+    def add(data, ctype, typ):
+        data = np.ascontiguousarray(data)
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": data.nbytes})
+        blob.extend(data.tobytes())
+        while len(blob) % 4:
+            blob.append(0)
+        accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                          "count": len(data), "type": typ})
+        return len(accessors) - 1
+
+    for k, r in enumerate(runs):
+        v0, v1 = starts[k], starts[k + 1]
+        local = idx[r] - v0
+        if local.min() < 0 or local.max() >= v1 - v0:
+            raise ValueError("a run of faces uses vertices of another run")
+        attrs = {"POSITION": add(np.asarray(arrays["vertices"][v0:v1],
+                                            np.float32), 5126, "VEC3"),
+                 "NORMAL": add(np.asarray(arrays["normals"][v0:v1],
+                                          np.float32), 5126, "VEC3")}
+        ind = add(local.reshape(-1).astype(np.uint32), 5125, "SCALAR")
+        meshes.append({"primitives": [{"attributes": attrs, "indices": ind,
+                                       "material": int(fm[r[0]])}]})
+        nodes.append({"mesh": k})
+
+    materials = []
+    for m in range(len(arrays["mtl_emission"])):
+        ext = {}
+        if arrays["mtl_emission"][m] > 0:
+            ext["KHR_materials_emissive_strength"] = {
+                "emissiveStrength": _f(arrays["mtl_emission"][m])[0]}
+        if arrays["mtl_eta"][m] > 0:
+            ext["KHR_materials_ior"] = {"ior": _f(arrays["mtl_eta"][m])[0]}
+        if arrays["mtl_specular"][m] != np.float32(0.5):
+            ext["KHR_materials_transmission"] = {"transmissionFactor": 5.0 * (
+                1.0 - _f(arrays["mtl_specular"][m])[0])}
+        materials.append({
+            "name": f"m{m:03d}",
+            "pbrMetallicRoughness": {
+                "baseColorFactor": _f(arrays["mtl_base_color"][m]) + [1.0],
+                "metallicFactor": _f(arrays["mtl_metallic"][m])[0],
+                "roughnessFactor": _f(arrays["mtl_roughness"][m])[0]},
+            **({"extensions": ext} if ext else {})})
+
+    lights = []
+    kinds = {0: "point", 1: "directional", 2: "spot"}
+    for li, kind in enumerate(np.asarray(arrays["light_kind"]).tolist()):
+        light = {"type": kinds[kind], "color": _f(arrays["light_color"][li])}
+        inten = _f(arrays["light_intensity"][li])[0]
+        # point and spot intensities are read in candela (x 1/683 W)
+        light["intensity"] = inten if kind == 1 else inten * 683.0
+        if kind == 2:
+            light["spot"] = _spot_cone(_f(arrays["light_cos_outer"][li])[0],
+                                       _f(arrays["light_inv_cone"][li])[0])
+        lights.append(light)
+        nodes.append({"translation": _f(arrays["light_pos"][li]),
+                      "rotation": _quat_aiming(_f(arrays["light_dir"][li])),
+                      "extensions": {"KHR_lights_punctual": {"light": li}}})
+
+    c2w = np.asarray(arrays["cam_to_world"], np.float64)
+    nodes.append({"camera": 0, "translation": _f(c2w[:3, 3]),
+                  "rotation": _quat_of(c2w[:3, :3])})
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"uri": "data:application/octet-stream;base64,"
+                     + base64.b64encode(bytes(blob)).decode(),
+                     "byteLength": len(blob)}],
+        "bufferViews": views, "accessors": accessors, "meshes": meshes,
+        "materials": materials,
+        "cameras": [{"type": "perspective", "perspective": {
+            "yfov": _f(arrays["cam_yfov"])[0],
+            "aspectRatio": _f(arrays["cam_aspect"])[0],
+            "znear": _f(arrays["cam_znear"])[0]}}],
+        "nodes": nodes, "scenes": [{"nodes": list(range(len(nodes)))}],
+        "scene": 0}
+    if lights:
+        doc["extensionsUsed"] = ["KHR_lights_punctual"]
+        doc["extensions"] = {"KHR_lights_punctual": {"lights": lights}}
+    return doc
+
+
+def write_gltf(path, arrays: dict) -> str:
+    """Write gltf_document(arrays) to path; returns the path as a str."""
+    with open(path, "w") as f:
+        json.dump(gltf_document(arrays), f)
+    return str(path)
 
 
 def card_line():
@@ -1120,6 +1322,380 @@ def oracle_phase(T, host_room, dev):
         raise AssertionError("the stack guard let an overflowing tree render")
 
 
+
+def scene_arrays(scene) -> dict:
+    """A FlatScene's fields as numpy arrays (gltf_document's input)."""
+    return {f.name: getattr(scene, f.name).cpu().numpy()
+            for f in dataclasses.fields(scene)}
+
+
+def check_loaded(procedural, loaded, what):
+    """Phase 17's check: a loaded glTF scene against the procedural scene
+    it was written from, bit for bit: world geometry, faces, per-face
+    material values, delta lights, camera, dome and atlas."""
+    from tinypathtracer_tpu_torch.models.scene import FlatScene
+
+    procedural = procedural.to(loaded.device)
+    bad = [nm for nm, a, b in zip(("world vertices", "world normals"),
+                                  procedural.world_geometry(),
+                                  loaded.world_geometry())
+           if not torch.equal(a, b)]
+    fm_p, fm_l = procedural.face_mtl.long(), loaded.face_mtl.long()
+    for f in dataclasses.fields(FlatScene):
+        a, b = getattr(procedural, f.name), getattr(loaded, f.name)
+        if f.name.startswith("mtl_") and f.name != "mtl_tex_id":
+            a, b = a[fm_p], b[fm_l]
+        elif f.name in ("vertices", "normals", "vert_mats", "normal_mats",
+                        "obj_face_begin", "obj_mtl_idx", "face_mtl",
+                        "vert_obj", "mtl_tex_id"):
+            continue        # object tables: a mesh per material run
+        if not torch.equal(a, b):
+            bad.append(f.name)
+    if bad:
+        raise AssertionError(f"loaded {what} differs from the procedural "
+                             f"scene in {bad}")
+
+
+def gltf_phase(T, sky, dev, key, room_frame, tmp):
+    """Phase 17: the room, the 3-light room and the large scene written as
+    glTF, loaded through load_scene and flattened onto the card, each held
+    to its procedural arrays; then the loaded room's full-width
+    reference-mode frame through the one-shot render, on the megakernel,
+    bit-equal to the procedural room's frame of phase 4. Returns the host
+    Scenes by name."""
+    from tinypathtracer_tpu_torch.tools import lab_mega
+
+    room = T.sphere_grid_scene(*ROOM, env_radiance=sky)
+    procedural = {"room": room, "room+3 lights": lab_mega.with_lights(room),
+                  "large scene": T.sphere_grid_scene(*LARGE,
+                                                     env_radiance=sky)}
+    scenes = {}
+    for name, flat in procedural.items():
+        t0 = time.perf_counter()
+        path = write_gltf(f"{tmp}/{name.replace(' ', '_')}.gltf",
+                          scene_arrays(flat))
+        t1 = time.perf_counter()
+        scenes[name] = T.load_scene(path)
+        loaded = scenes[name].flatten(sky, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check_loaded(flat, loaded, name)
+        log(f"glTF {name}: {int(flat.indices.shape[0])} faces, "
+            f"{len(scenes[name].doc.meshes)} meshes, "
+            f"{int(flat.light_kind.shape[0])} lights; written in "
+            f"{(t1 - t0) * 1e3:.1f} ms ({os.path.getsize(path)} B), loaded "
+            f"and flattened onto the card in {(t2 - t1) * 1e3:.1f} ms; equal "
+            f"to the procedural arrays")
+    cfg = T.RenderConfig(width=512, height=512, spp=16, max_depth=8)
+    zero_launches()
+    t0 = time.perf_counter()
+    img = T.render(scenes["room"], cfg, key, env_radiance=sky)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"one-shot render of the loaded room, reference mode: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches {launches}")
+    if not (launches["mega"] and not launches["dense"]):
+        raise AssertionError(f"the reference frame must run the megakernel: "
+                             f"{launches}")
+    if not torch.equal(img, room_frame):
+        mx, share, mean = compare_images(img, room_frame)
+        raise AssertionError(f"loaded and procedural room frames differ: max "
+                             f"{mx}, share {share}, mean {mean}")
+    log("loaded room: its reference frame equals the procedural room's bit "
+        "for bit")
+    return scenes
+
+
+def physical_frames(T, scenes, sky, key, pcfg):
+    """Phase 18: the three full-width physical frames through the
+    one-shot render, launch counters zeroed before each scene's 3 frames
+    and read after: kernel A (room, 3-light room) or C (large scene)
+    exactly max_depth bounces x (3 + L) queries x chunks a frame (a chunk
+    of 2**20 lanes always has a path left at the last bounce), kernel B
+    never; best of 3, their spread, rays/s; one profiled frame of the
+    room and of the large scene (kernel A's or C's mean ms a launch).
+    Returns {name: (best ms, spread ms, launches of 3 frames, mean ms a
+    launch or None)} and each scene's last frame."""
+    n_rays = pcfg.n_pixels * pcfg.spp
+    chunks = -(-n_rays // pcfg.rays_per_dispatch)
+    out, frames = {}, {}
+    for name, kernel in (("room", "dense"), ("room+3 lights", "dense"),
+                         ("large scene", "packet")):
+        n_lights = len(scenes[name].doc.lights)
+        want = pcfg.max_depth * (3 + n_lights) * chunks
+        zero_launches()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = T.render(scenes[name], pcfg, key, env_radiance=sky)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = read_launches()
+        other = "packet" if kernel == "dense" else "dense"
+        if not (launches[kernel] == 3 * want and launches[other] == 0
+                and launches["mega"] == 0 and launches["mega_save_hits"] == 0):
+            raise AssertionError(
+                f"physical {name} frames: want {want} launches a frame of "
+                f"kernel {'A' if kernel == 'dense' else 'C'} only, got "
+                f"{launches} in 3 frames")
+        if not (img.shape == (pcfg.height, pcfg.width, 3)
+                and torch.isfinite(img).all() and float(img.mean()) > 0.01):
+            raise AssertionError(f"physical {name} frame is not a finite, "
+                                 f"lit image")
+        label = "A" if kernel == "dense" else "C"
+        symbol = "dense_hit_kernel" if kernel == "dense" else \
+            "packet_hit_kernel"
+        mean_ms = None
+        if n_lights == 0:       # the profile's post-processing takes ~20 s
+            mean_ms = log_kernel_share(
+                f"physical {name} frame",
+                profile_step(f"physical {name} frame", T.render,
+                             scenes[name], pcfg, key, sky), label, symbol)
+        best, spread = min(times), max(times) - min(times)
+        log(f"physical {name}: {pcfg.width}x{pcfg.height} @{pcfg.spp}spp "
+            f"d{pcfg.max_depth}, {n_rays} camera rays: best of 3 "
+            f"{best * 1e3:.1f} ms (spread {spread * 1e3:.1f} ms), "
+            f"{n_rays / best:,.0f} rays/s, image mean {float(img.mean()):.5f}; "
+            f"kernel {label} {want} launches a frame ({pcfg.max_depth} x "
+            f"(3 + {n_lights}) x {chunks})"
+            + ("" if mean_ms is None else f", {mean_ms:.2f} ms a launch"))
+        out[name] = (best * 1e3, spread * 1e3, launches[kernel], mean_ms)
+        frames[name] = img
+    return out, frames
+
+
+def capture_queries(T, scene, cfg, key, n_lanes):
+    """The closest-hit queries of one physical trace of the first n_lanes
+    lanes of a frame, in call order: per bounce the main ray, each delta
+    light, the environment NEE, the area NEE. Returns (state, [(origins,
+    dirs, mask)])."""
+    from tinypathtracer_tpu_torch.render.integrator import trace_paths
+    from tinypathtracer_tpu_torch.render.renderer import (hit_fn, lane_rays,
+                                                          prepare_state)
+
+    queries = []
+    with torch.inference_mode():
+        st = prepare_state(scene, cfg)
+        pix = torch.arange(n_lanes // cfg.spp, device=scene.device)
+        o, d, keys = lane_rays(st.scene, cfg, pix, key)
+        fn = hit_fn(st, cfg)
+
+        def recording(orig, dirs, mask=None):
+            queries.append((orig, dirs, mask))
+            return fn(orig, dirs, mask=mask)
+
+        trace_paths(st.data, cfg, recording, o, d, keys)
+    return st, queries
+
+
+def nee_vs_twins(T, scenes, sky, key, pcfg, dev):
+    """Phase 19: kernel A on one 2**20-lane chunk's environment-NEE and
+    area-NEE queries of the physical room (bounces 0 and 1), kernel C on
+    the large scene's (bounce 0), each captured from the frame's own
+    trace, against its plain twin on the card, exactly. Returns (max |uv|
+    error of A, of C)."""
+    from tinypathtracer_tpu_torch.ops import dense, packet
+
+    errs = []
+    for name, bounces in (("room", (0, 1)), ("large scene", (0,))):
+        scene = scenes[name].flatten(sky, device=dev)
+        st, queries = capture_queries(T, scene, pcfg, key.to(dev),
+                                      pcfg.rays_per_dispatch)
+        per = 3 + scene.light_kind.shape[0]
+        if len(queries) % per:
+            raise AssertionError(f"{len(queries)} queries is not a whole "
+                                 f"number of bounces of {per}")
+        err = 0.0
+        for b in bounces:
+            for kind, q in (("environment NEE", per * b + per - 2),
+                            ("area NEE", per * b + per - 1)):
+                o, d, mask = queries[q]
+                n = o.shape[0]
+                if st.packet is None:
+                    rays = torch.cat([o, d, o.new_zeros((n, 2))], 1)
+                    got = dense.dense_hit(rays, st.woop, mask)
+                    t0 = time.perf_counter()
+                    want = dense._dense_torch(
+                        rays, st.woop.planes,
+                        st.woop.sp_boxes if dense.gated(st.woop) else None,
+                        mask)
+                    label = "A"
+                    names = ("t", "slot", "uv")
+                else:
+                    pk = st.packet
+                    rays = torch.cat([o, d, mask.float()[:, None],
+                                      o.new_zeros((n, 1))], 1).contiguous()
+                    got = packet.packet_hit(rays, pk.woop.planes, pk.boxes,
+                                            pk.tc)
+                    t0 = time.perf_counter()
+                    want = packet._packet_torch(rays, pk.woop.planes,
+                                                pk.boxes, pk.tc)
+                    label = "C"
+                    names = ("t", "slot", "uv", "visits")
+                torch.cuda.synchronize()
+                what = (f"kernel {label} vs twin, physical {name}, bounce {b} "
+                        f"{kind}, {n} lanes ({int(mask.sum())} live)")
+                check_equal(got, want, what, names)
+                err = max(err, float((got[2] - want[2]).abs().max()))
+                log(f"{what}: exact; hit share of live lanes "
+                    f"{float((got[1][mask] >= 0).float().mean()):.4f}; twin "
+                    f"{time.perf_counter() - t0:.1f} s")
+        errs.append(err)
+        del queries, st
+    return tuple(errs)
+
+
+def physical_large_on_a(T, scene, sky, key, pcfg, packet_frame, dev):
+    """Phase 20: the large scene's physical frame through the modular
+    loop forced onto kernel A: bit-equal to the packet frame."""
+    from tinypathtracer_tpu_torch.render import film
+    from tinypathtracer_tpu_torch.render.renderer import (prepare_state,
+                                                          render_pixel_ids)
+
+    with torch.inference_mode():
+        st = dataclasses.replace(
+            prepare_state(scene.flatten(sky, device=dev), pcfg), packet=None)
+        pix = torch.arange(pcfg.n_pixels, device=dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        img = film.to_image(render_pixel_ids(st, pcfg, pix, key.to(dev))
+                            .reshape(pcfg.height, pcfg.width, 3), pcfg.spp)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"large scene, physical frame forced onto kernel A: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches {launches}")
+    if launches["packet"] or not launches["dense"]:
+        raise AssertionError(f"the forced frame must run kernel A only: "
+                             f"{launches}")
+    if not torch.equal(img, packet_frame):
+        mx, share, mean = compare_images(img, packet_frame)
+        raise AssertionError(f"physical packet and dense frames differ: max "
+                             f"{mx}, share {share}, mean {mean}")
+    log("large scene, physical: the packet frame equals the kernel A frame "
+        "bit for bit")
+
+
+def oracle_disagreements(scene, cfg, key, dev):
+    """Each closest-hit query of the kernel A trace of a frame answered by
+    the brute force too. Returns (the (lane, query) pairs whose faces
+    differ, those of them where neither hit lies within SELF_HIT_T of the
+    origin)."""
+    from tinypathtracer_tpu_torch.ops.intersect import closest_hit_bruteforce
+    from tinypathtracer_tpu_torch.render.integrator import trace_paths
+    from tinypathtracer_tpu_torch.render.renderer import (hit_fn, lane_rays,
+                                                          prepare_state)
+
+    counts = [0, 0]
+    with torch.inference_mode():
+        st = prepare_state(scene, cfg)
+        o, d, keys = lane_rays(st.scene, cfg,
+                               torch.arange(cfg.n_pixels, device=dev),
+                               key.to(dev))
+        dense_fn, tv = hit_fn(st, cfg), st.data.tri_verts
+
+        def both(orig, dirs, mask=None):
+            a = dense_fn(orig, dirs, mask=mask)
+            b = closest_hit_bruteforce(orig, dirs, tv, mask=mask)
+            bad = a[0] != b[0]
+            counts[0] += int(bad.sum())
+            counts[1] += int((bad & (torch.minimum(a[1], b[1])
+                                     >= SELF_HIT_T)).sum())
+            return a
+
+        trace_paths(st.data, cfg, both, o, d, keys)
+    return tuple(counts)
+
+
+def physical_oracle(T, scene, sky, dev):
+    """Phase 21: a 64x64 @4 spp d8 physical room frame on kernel A against
+    the bruteforce route. The two test a ray against a triangle by
+    different arithmetic, so their hits differ by ulps and the paths part
+    a little at every bounce; where a ray grazes the surface it leaves,
+    one may report that surface just past the DELTA cutoff (a self-hit)
+    and the other not. Every query of the kernel A trace is answered by
+    both: where their faces differ, one hit must be a self-hit (within
+    SELF_HIT_T of the origin). The frames may differ beyond 1e-5 on at
+    most PHYSICAL_ORACLE_PIXELS pixels (counted)."""
+    key = T.prng_key(3)
+    cfg = T.RenderConfig(**ORACLE, mode="physical")
+    dense_img = T.render(scene, cfg, key, env_radiance=sky)
+    t0 = time.perf_counter()
+    zero_launches()
+    brute = T.render(scene, dataclasses.replace(cfg, intersector="bruteforce"),
+                     key, env_radiance=sky)
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise AssertionError("the bruteforce route launched a kernel")
+    t_brute = time.perf_counter() - t0
+    mx, share, mean = compare_images(brute, dense_img)
+    beyond = round(share * cfg.width * cfg.height)
+    pairs, unexplained = oracle_disagreements(
+        scene.flatten(sky, device=dev), cfg, key, dev)
+    log(f"physical room {ORACLE} bruteforce route {t_brute:.1f} s; against "
+        f"kernel A: max abs diff {mx:.3e}, {beyond} pixels beyond 1e-5 "
+        f"(limit {PHYSICAL_ORACLE_PIXELS}), mean abs diff {mean:.3e}; on "
+        f"the kernel A trace's queries {pairs} (lane, query) pairs whose "
+        f"faces differ, {unexplained} of them without a self-hit "
+        f"(t < {SELF_HIT_T})")
+    if unexplained or beyond > PHYSICAL_ORACLE_PIXELS:
+        raise AssertionError(
+            f"physical bruteforce and kernel A frames: {unexplained} "
+            f"differing hits without a self-hit, {beyond} pixels beyond 1e-5")
+
+
+def physical_train(T, scene, sky, pcfg, dev):
+    """Phase 22: the physical room's train step at full width through
+    make_train_step: a warm-up (loss_and_grads and the Adam step, with the
+    gradients checked finite), then 3 timed steps; peak memory. Returns
+    (best ms, peak GiB, launches of the 3 steps)."""
+    from tinypathtracer_tpu_torch.diff import invrender as inv
+
+    flat = scene.flatten(sky, device=dev)
+    params = inv.Params.from_scene(flat)
+    state = inv.AdamState.init(params)
+    target = torch.zeros((pcfg.height, pcfg.width, 3), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = inv.loss_and_grads(params, flat, pcfg, target,
+                                     T.prng_key(1, dev))
+    params, state = inv.adam_step(params, grads, state, LR)
+    torch.cuda.synchronize()
+    bad = [nm for nm, g in zip(param_names(inv), grads.leaves())
+           if not torch.isfinite(g).all()]
+    if bad or not math.isfinite(float(loss)):
+        raise AssertionError(f"physical step: loss {float(loss)}, non-finite "
+                             f"gradients {bad}")
+    log(f"physical room train step (warm-up): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss {float(loss):.6f}, "
+        f"every gradient finite; |g| max per leaf "
+        f"{[float(g.abs().max()) for g in grads.leaves() if g.numel()]}")
+    step = inv.make_train_step(pcfg, LR, device=dev.type)
+    zero_launches()
+    best = float("inf")
+    for i in range(3):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, flat, target,
+                                   T.prng_key(i + 2, dev))
+        loss = float(loss)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        if not (math.isfinite(loss)
+                and all(torch.isfinite(x).all() for x in params.leaves())):
+            raise AssertionError(f"physical step {i}: loss {loss} or the "
+                                 f"parameters are not finite")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_rays = pcfg.n_pixels * pcfg.spp
+    log(f"physical room train step: best of 3 {best * 1e3:.1f} ms, "
+        f"{n_rays / best:,.0f} fwd+bwd camera rays/s, loss {loss:.6f}; peak "
+        f"memory {peak:.2f} GiB; launches in 3 steps {launches}")
+    if launches["mega"] or launches["mega_save_hits"] or not launches["dense"]:
+        raise AssertionError(f"the physical step must run kernel A only: "
+                             f"{launches}")
+    return best * 1e3, peak, launches["dense"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1131,6 +1707,13 @@ def main():
     from tinypathtracer_tpu_torch.render.integrator import TraceData
 
     dev = torch.device("cuda")
+    clock = [time.perf_counter()]
+
+    def phase_done(what):
+        now = time.perf_counter()
+        log(f"[{what}: {now - clock[0]:.1f} s]")
+        clock[0] = now
+
     # ---- 1. card, versions, kernel build --------------------------------
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1146,11 +1729,15 @@ def main():
         mod._lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
+    phase_done("phase 1")
+
     # ---- 2. kernel A vs its plain twin ------------------------------------
     sky = gradient_sky(64, 128)
     err_a = dense_vs_twin(T, sky, dev)
     room = T.sphere_grid_scene(*ROOM, env_radiance=sky, device=dev)
     woop = dense.precompute_woop(TraceData.from_scene(room).tri_verts)
+
+    phase_done("phase 2")
 
     # ---- 3. kernel B vs its plain twin ------------------------------------
     small = T.RenderConfig(width=64, height=64, spp=4, max_depth=8)
@@ -1168,6 +1755,8 @@ def main():
                                     f"{name}, {ops[0].shape[1]}")
             err_b, err_h = max(err_b, e_b), max(err_h, e_h)
     del big_dev
+
+    phase_done("phase 3")
 
     # ---- 4. the main path -------------------------------------------------
     cfg = T.RenderConfig(width=512, height=512, spp=16, max_depth=8)
@@ -1236,7 +1825,10 @@ def main():
     log(f"launches in the main path: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    room_frame = images["megakernel"]
     del images, img, big_img, big_mod, r
+
+    phase_done("phase 4")
 
     # ---- 5. both kernels against their twins at the main path's shapes ----
     # one 2**20-lane chunk: its camera rays into kernel A, its rays8 / u8d
@@ -1272,6 +1864,8 @@ def main():
         got, want, f"big room ({big_state.woop.n_padded} slots), "
         f"{got.shape[1]}"))
     del big_ops, big_state, got, want
+
+    phase_done("phase 5")
 
     # ---- 6. kernel B's save_hits instance vs its twin ----------------------
     for n_lights in range(mega.MAX_LIGHTS + 1):
@@ -1309,13 +1903,19 @@ def main():
     # no-refill grid
     run_main("lab_mega main", lab_mega.main, [])
 
+    phase_done("phase 6")
+
     # ---- 7. the train step at full width -----------------------------------
     train_launches = train_phase(T, cfg, host_room)
+
+    phase_done("phase 7")
 
     # ---- 8. megakernel vs modular gradients on the card --------------------
     for name, scene in (("room", room),
                         ("room+3 lights", lab_mega.with_lights(room))):
         compare_grads(T, scene, small, name)
+
+    phase_done("phase 8")
 
     # ---- 9-12. the packet traversal and the large scene ---------------
     large = T.sphere_grid_scene(*LARGE, env_radiance=sky)
@@ -1334,6 +1934,8 @@ def main():
         f"first bounce (bound {bounds['packet_first_bounce'][0]:.3f} ms)")
     del pk
     packet_launches = large_scene_paths(T, cfg, large, key, dev)
+
+    phase_done("phases 9-12")
 
     # ---- 13-15. the kernel lab -------------------------------------------
     from tinypathtracer_tpu_torch.tools import (kernel_lab, lab5, lab6,
@@ -1361,8 +1963,33 @@ def main():
     run_main("lab6 main", lab6.main, [])
     run_main("profile_stages main", profile_stages.main, [])
 
+    phase_done("phases 13-15")
+
     # ---- 16. the oracle routes ---------------------------------------------
     oracle_phase(T, host_room, dev)
+
+    phase_done("phase 16")
+
+    # ---- 17-22. the scene-file entry point and the physical estimator ------
+    pcfg = dataclasses.replace(cfg, mode="physical")
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = gltf_phase(T, sky, dev, key, room_frame, tmp)
+    del room_frame
+    phase_done("phase 17")
+    physical, frames = physical_frames(T, scenes, sky, key, pcfg)
+    phase_done("phase 18")
+    err_a_nee, err_c_nee = nee_vs_twins(T, scenes, sky, key, pcfg, dev)
+    err_a, err_c = max(err_a, err_a_nee), max(err_c, err_c_nee)
+    phase_done("phase 19")
+    physical_large_on_a(T, scenes["large scene"], sky, key, pcfg,
+                        frames["large scene"], dev)
+    del frames
+    phase_done("phase 20")
+    physical_oracle(T, scenes["room"], sky, dev)
+    phase_done("phase 21")
+    step_ms, step_peak, step_launches = physical_train(T, scenes["room"], sky,
+                                                       pcfg, dev)
+    phase_done("phase 22")
 
     kernels = [
         {"name": "dense_closest_hit", "route": "cuda",
@@ -1372,6 +1999,10 @@ def main():
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": bounds["dense"][0],
          "bound_by": bounds["dense"][1], "library_ms": None,
          "modular_frame_ms_per_launch": a_launch_ms,
+         "physical_room_launches": physical["room"][2],
+         "physical_room_ms_per_launch": physical["room"][3],
+         "physical_3_lights_launches": physical["room+3 lights"][2],
+         "physical_step_launches": step_launches,
          **{f"{cell}.{k}": dense_lab[cell][k] for cell in lab_dense.CELLS
             for k in ("ms", "tested_bound_ms", "tested_share")}},
         {"name": "mega_trace", "route": "cuda",
@@ -1394,7 +2025,9 @@ def main():
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": bounds["packet"][0],
          "bound_by": bounds["packet"][1], "library_ms": None,
          "first_bounce_ms": fb_ms,
-         "first_bounce_bound_ms": bounds["packet_first_bounce"][0]},
+         "first_bounce_bound_ms": bounds["packet_first_bounce"][0],
+         "physical_large_launches": physical["large scene"][2],
+         "physical_large_ms_per_launch": physical["large scene"][3]},
     ]
     for name, src, line, launched in (
             ("mxu", "lab4.cu", "tools/lab4.py:60", lab4_launches["mxu"]),
@@ -1411,6 +2044,9 @@ def main():
             "replaces": f"tinypathtracer_tpu/{line}", "launches": launched,
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
+    log(f"physical frames (best, spread, launches of 3 frames, ms a launch): "
+        f"{physical}; physical room step {step_ms:.1f} ms, "
+        f"{step_peak:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,14 @@
 
 Both packages render the same procedural room: the JAX package builds
 it, and the port receives its fields as numpy arrays through
-`FlatScene.from_numpy`. `train_setup` does the same for the training
+`FlatScene.from_numpy`. `write_room` writes the room as a glTF file
+(chip_smoke.write_gltf, the writer the smoke run uses) for both
+packages' `load_scene`. `train_setup` does the same for the training
 state: JAX `Params` and an optax Adam state, and their port twins.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import jax
@@ -16,6 +19,7 @@ import optax
 from tinypathtracer_tpu.diff.invrender import Params as JaxParams
 from tinypathtracer_tpu.models.envlight import gradient_sky
 from tinypathtracer_tpu.models.procedural import sphere_grid_scene
+from chip_smoke import write_gltf
 from tinypathtracer_tpu_torch import FlatScene
 from tinypathtracer_tpu_torch.diff import Params, adam_state_from_optax
 
@@ -61,6 +65,14 @@ def to_numpy(flat) -> dict:
 
 def port_scene(flat, device="cpu") -> FlatScene:
     return FlatScene.from_numpy(to_numpy(flat), device)
+
+
+def write_room(directory, grid=1, n_lat=6, n_lon=12, lights=False) -> str:
+    """jax_scene(grid, n_lat, n_lon, lights) written as a glTF file in
+    directory; returns its path."""
+    flat = jax_scene(grid, n_lat, n_lon, lights=lights)
+    name = f"room_{grid}_{n_lat}_{n_lon}{'_lights' if lights else ''}.gltf"
+    return write_gltf(os.path.join(str(directory), name), to_numpy(flat))
 
 
 def train_setup(flat, seed=0, steps=2, device="cpu"):

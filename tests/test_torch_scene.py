@@ -109,8 +109,11 @@ def test_big_room_pads_to_megakernel_limit():
 
 
 def test_config_validation():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderConfig(mode="physical")
+    cfg = RenderConfig(mode="physical")
+    assert (cfg.mode, cfg.russian_roulette, cfg.area_nee) == (
+        "physical", False, True)
+    with pytest.raises(ValueError):
+        RenderConfig(mode="biased")
     for isect in ("bvh", "bruteforce", "packet"):
         assert RenderConfig(intersector=isect).intersector == isect
     with pytest.raises(ValueError):

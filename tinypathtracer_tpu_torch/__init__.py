@@ -1,13 +1,18 @@
 """tinypathtracer_tpu_torch: the PyTorch + CUDA port of tinypathtracer_tpu.
 
-The reference-mode forward render path, with hand-written Hopper
-kernels for the two hot loops: the dense closest hit (`csrc/dense.cu`)
-and the path-tracing megakernel (`csrc/mega.cu`). The JAX package
-`tinypathtracer_tpu` is the reference this port is tested against; this
-package never imports jax.
+A differentiable path tracer with hand-written Hopper kernels for its
+hot loops: the dense closest hit (`csrc/dense.cu`), the path-tracing
+megakernel (`csrc/mega.cu`) and the packet traversal (`csrc/packet.cu`).
+The JAX package `tinypathtracer_tpu` is the reference this port is
+tested against; this package never imports jax. Entry points run on the
+card unless the caller passes device="cpu".
 
 Public API:
-    RenderConfig(...)                 -> resolution / spp / depth config
+    load_scene(path)                  -> Scene (host-side, numpy)
+    Scene.flatten(env, device)        -> FlatScene (scene tensors on a device)
+    RenderConfig(...)                 -> resolution / spp / depth / mode
+    render(scene, cfg, key, env, device) -> image [H, W, 3]
+    Camera(...)                       -> perspective camera
     FlatScene.from_numpy(arrays, dev) -> scene tensors on a device
     sphere_grid_scene(...)            -> procedural room scene
     prng_key(seed)                    -> frame key (== jax.random.PRNGKey)
@@ -15,10 +20,13 @@ Public API:
 """
 
 from tinypathtracer_tpu_torch.config import RenderConfig
+from tinypathtracer_tpu_torch.models.camera import Camera
 from tinypathtracer_tpu_torch.models.procedural import sphere_grid_scene
-from tinypathtracer_tpu_torch.models.scene import FlatScene
+from tinypathtracer_tpu_torch.models.scene import FlatScene, Scene, load_scene
 from tinypathtracer_tpu_torch.ops.sampling import prng_key
-from tinypathtracer_tpu_torch.render.renderer import Renderer, render_frame
+from tinypathtracer_tpu_torch.render.renderer import (Renderer, render,
+                                                      render_frame)
 
-__all__ = ["RenderConfig", "FlatScene", "sphere_grid_scene", "prng_key",
-           "Renderer", "render_frame"]
+__all__ = ["RenderConfig", "Scene", "FlatScene", "load_scene", "Camera",
+           "sphere_grid_scene", "prng_key", "Renderer", "render",
+           "render_frame"]

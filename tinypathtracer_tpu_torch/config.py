@@ -23,7 +23,10 @@ class RenderConfig:
     spp: int = 16
     max_depth: int = 8
     # "reference" reproduces the CUDA reference estimator with its quirks
-    # (render/integrator.py). "physical" is not ported yet.
+    # (render/integrator.py); "physical" is the physically correct one
+    # (emissive-hit MIS, delta-light NEE with the cosine, environment
+    # importance sampling, emissive-face NEE). The megakernel runs
+    # reference mode only; physical mode runs the modular loop.
     mode: str = "reference"
     # "dense" tests every ray against every triangle (ops/dense.py) and
     # resolves to "packet" above 8192 padded faces
@@ -46,6 +49,16 @@ class RenderConfig:
     rays_per_dispatch: int = 1 << 20
     # Environment light intensity scale applied on miss.
     env_scale: float = 1.0
+    # Russian roulette is NOT part of the reference estimator; keep off
+    # for parity. Physical mode only: from the fourth bounce a path
+    # survives with probability max(throughput) clamped to [0.05, 1].
+    russian_roulette: bool = False
+    # Physical mode only: emissive-triangle next-event estimation with
+    # MIS against BSDF sampling (power-weighted face sampling), the
+    # correct version of the reference's extra BSDF-sampled direct ray
+    # (path_tracer.cu:387-401). Off = BSDF sampling finds emitters by
+    # luck.
+    area_nee: bool = True
     # Trace the whole reference-mode bounce loop in one kernel launch
     # per chunk (ops/mega.py) when the scene qualifies (<= 8192 padded
     # faces, <= 6 delta lights). False forces the modular per-bounce
@@ -58,11 +71,7 @@ class RenderConfig:
             value = getattr(self, name)
             if not isinstance(value, int) or value < 1:
                 raise ValueError(f"{name} must be a positive int: {value!r}")
-        if self.mode == "physical":
-            raise NotImplementedError(
-                "mode='physical' is not ported yet (ROADMAP.md, port item "
-                "'Physical mode')")
-        if self.mode != "reference":
+        if self.mode not in ("reference", "physical"):
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.intersector not in _INTERSECTORS:
             raise ValueError(f"unknown intersector {self.intersector!r}")

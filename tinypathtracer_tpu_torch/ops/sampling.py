@@ -1,6 +1,7 @@
-"""Per-lane threefry key chain, bit-exact with `jax.random`.
+"""Per-lane threefry key chain, bit-exact with `jax.random`, and the
+Monte-Carlo samplers (port of `tinypathtracer_tpu/ops/sampling.py`).
 
-Port of `tinypathtracer_tpu/ops/sampling.py:35-47`. Every random draw of
+Every random draw of
 a frame derives from a (frame key, pixel, sample, tag) chain, so an
 image depends only on its key and never on chunking. The port keeps
 that contract by reproducing jax's threefry2x32 bit for bit: the keys
@@ -11,13 +12,25 @@ The recipe (jax 0.9, `jax_threefry_partitionable=True`, which is the
 default there):
   * `PRNGKey(seed)`        -> (seed >> 32, seed & 0xFFFFFFFF);
   * `fold_in(key, d)`      -> threefry2x32(key, (0, d));
-  * `uniform(key, (m,))`   -> word j = x0 ^ x1 of threefry2x32(key, (0, j)),
-                              then float((w >> 9) | 0x3F800000) - 1.
+  * `uniform(key, shape)`  -> word j (row-major flat index) = x0 ^ x1 of
+                              threefry2x32(key, (0, j)), then
+                              float((w >> 9) | 0x3F800000) - 1;
+  * `split(key, n)[i]`     -> threefry2x32(key, (0, i)) = fold_in(key, i).
+
+The samplers take raw uniforms (`*_u`) or a key, and work on (..., 3)
+tensors; the bounce loop's component-form versions are in
+ops/shading_c.py, which these share.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from tinypathtracer_tpu_torch.ops import shading_c
+from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, PI
+from tinypathtracer_tpu_torch.utils.math3d import sqrt
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -72,11 +85,101 @@ def fold_all(keys, tag: int):
     return fold_in(keys, tag)
 
 
+def _to_unit(b0, b1):
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
 def lane_uniform(keys, m: int):
     """[N, m] U[0,1) float32 draws, column j of lane i depending only on
     keys[i] (`jax.random.uniform(keys[i], (m,))`)."""
     j = torch.arange(m, dtype=torch.int64, device=keys.device)
     b0, b1 = threefry2x32(keys[..., 0:1], keys[..., 1:2],
                           torch.zeros_like(j), j)
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    return _to_unit(b0, b1)
+
+
+def uniform(key, shape):
+    """U[0,1) float32 draws of the given shape from one [2] key
+    (`jax.random.uniform(key, shape)`)."""
+    n = math.prod(shape)
+    if n >= 1 << 32:
+        raise ValueError(f"uniform: {n} draws need 64-bit counters")
+    j = torch.arange(n, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(j), j)
+    return _to_unit(b0, b1).reshape(shape)
+
+
+def split(key, num: int = 2):
+    """`jax.random.split(key, num)`: [num, 2] keys."""
+    return fold_in(key, torch.arange(num, dtype=torch.int64,
+                                     device=key.device))
+
+
+def uniform2(key, shape):
+    """Two independent U[0,1) tensors of the given shape from one key."""
+    u = uniform(key, tuple(shape) + (2,))
+    return u[..., 0], u[..., 1]
+
+
+def _frame(u_phi, cos_t, sin_t, normal):
+    """cos(phi) sin_t t + cos_t n + sin(phi) sin_t b, phi = 2 pi u_phi,
+    in the reference's tangent frame (t, b) of normals [..., 3]."""
+    tx, ty, tz, bx, by, bz = shading_c.build_onb_c(*normal.unbind(dim=-1))
+    phi = 2.0 * PI * u_phi
+    a, c = torch.cos(phi) * sin_t, torch.sin(phi) * sin_t
+    nx, ny, nz = normal.unbind(dim=-1)
+    return torch.stack([(a * tx + cos_t * nx) + c * bx,
+                        (a * ty + cos_t * ny) + c * by,
+                        (a * tz + cos_t * nz) + c * bz], dim=-1)
+
+
+def hemisphere_cosine_u(u1, u2, normal):
+    """Cosine-weighted hemisphere sample around unit normals [..., 3]
+    from raw uniforms (sampler.h:75-89): phi = 2 pi u1, cos(theta) =
+    sqrt(u2). Returns (direction [..., 3], pdf = cos(theta) / pi)."""
+    cos_t = sqrt(u2)
+    sin_t = sqrt(torch.clamp_min(1.0 - u2, 0.0))
+    return _frame(u1, cos_t, sin_t, normal), cos_t * INV_PI
+
+
+def hemisphere_cosine(key, normal):
+    """Key-based wrapper over hemisphere_cosine_u."""
+    return hemisphere_cosine_u(*uniform2(key, normal.shape[:-1]), normal)
+
+
+def hemisphere_uniform_u(u1, u2, normal):
+    """Uniform hemisphere sample (sampler.h:50-66): cos(theta) = u1,
+    phi = 2 pi u2. Returns (direction, pdf = 1 / (2 pi))."""
+    sin_t = sqrt(torch.clamp_min(1.0 - u1 * u1, 0.0))
+    d = _frame(u2, u1, sin_t, normal)
+    return d, torch.full_like(u1, 1.0 / (2.0 * PI))
+
+
+def hemisphere_uniform(key, normal):
+    """Key-based wrapper over hemisphere_uniform_u."""
+    return hemisphere_uniform_u(*uniform2(key, normal.shape[:-1]), normal)
+
+
+def coin_flip_u(u, p):
+    """Bernoulli(p) from a raw uniform (sampler.h:98-101)."""
+    return u < p
+
+
+def coin_flip(key, p):
+    """Key-based wrapper over coin_flip_u."""
+    return uniform(key, tuple(p.shape)) < p
+
+
+def triangle_uniform_u(u1, u2, v0, v1, v2):
+    """Uniform point on triangles (v0, v1, v2) [..., 3] (sampler.h:30-37)."""
+    su = sqrt(u1)
+    a = su * (1.0 - u2)
+    b = su * u2
+    return (a[..., None] * v0 + b[..., None] * v1) \
+        + (1.0 - a - b)[..., None] * v2
+
+
+def triangle_uniform(key, v0, v1, v2):
+    """Key-based wrapper over triangle_uniform_u."""
+    return triangle_uniform_u(*uniform2(key, v0.shape[:-1]), v0, v1, v2)

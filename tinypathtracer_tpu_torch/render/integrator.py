@@ -1,11 +1,13 @@
-"""Reference-mode path-tracing integrator, modular form (port of
+"""Path-tracing integrator, modular form (port of
 `tinypathtracer_tpu/render/integrator.py`).
 
 The bounce loop runs over a whole ray batch, one closest-hit query per
 bounce and direction (ops/dense.py, kernel A on CUDA), carrying the
-path state (`Paths`) in component form. A bounce is shaded by `scatter`
-and closed by `end_bounce`; the megakernel's plain twin (ops/mega.py)
-shares both. The reference estimator's quirks are kept on purpose:
+path state (`Paths`) in component form. Two estimators, by cfg.mode.
+
+"reference" keeps the CUDA reference estimator's quirks on purpose. A
+bounce is shaded by `scatter` and closed by `end_bounce`; the
+megakernel's plain twin (ops/mega.py) shares both.
 
   * delta-light NEE adds baseColor * incomingRadiance with NO cosine or
     1/pi BRDF factor (path_tracer.cu:281);
@@ -18,13 +20,24 @@ shares both. The reference estimator's quirks are kept on purpose:
   * shadow rays use full closest-hit occlusion with no max-distance
     clip: geometry beyond a point light still shadows it.
 
+"physical" is the physically correct estimator (`physical_bounce`): on
+diffuse lanes, NEE toward each delta light with the cosine, toward the
+environment by importance sampling (models/envlight.py) and toward a
+power-sampled point on an emissive face, weighted by the balance
+heuristic against the BSDF draw; an emissive hit carries the matching
+MIS weight, the environment is counted on a miss only after a camera or
+specular bounce, and Russian roulette is optional. A bounce makes
+3 + L closest-hit queries (L delta lights) where reference mode makes
+2 + L.
+
 Gradients follow the JAX package's path-replay convention: hit ids
 are detached (every intersector call sees detached rays), and the
 surface point stays differentiable through `_HitSurface`, whose backward
-recomputes (t, u, v) with Moller-Trumbore. `trace_paths(...,
-stored_hits=...)` replays the shading alone on hits recorded by the
-megakernel (the backward pass of ops/mega.py); no intersector runs
-there. Physical mode and textures are later port items.
+recomputes (t, u, v) with Moller-Trumbore. Each `lax.stop_gradient` of
+the JAX integrator is a `.detach()` here, in the same place.
+`trace_paths(..., stored_hits=...)` replays the reference-mode shading
+alone on hits recorded by the megakernel (the backward pass of
+ops/mega.py); no intersector runs there. Textures are a later port item.
 """
 
 from __future__ import annotations
@@ -35,12 +48,18 @@ from typing import Callable
 import torch
 
 from tinypathtracer_tpu_torch.config import RenderConfig
+from tinypathtracer_tpu_torch.models.envlight import (EnvSamplingTables,
+                                                      build_env_tables,
+                                                      env_lookup, sample_env_u)
 from tinypathtracer_tpu_torch.models.scene import FlatScene
 from tinypathtracer_tpu_torch.ops import shading_c
 from tinypathtracer_tpu_torch.ops.lights import (lights_block,
                                                  sample_delta_light)
-from tinypathtracer_tpu_torch.ops.sampling import fold_all, lane_uniform
+from tinypathtracer_tpu_torch.ops.sampling import (fold_all, lane_uniform,
+                                                   triangle_uniform_u)
+from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, dot_c
 from tinypathtracer_tpu_torch.ops.traverse import _ray_tri_single
+from tinypathtracer_tpu_torch.utils.math3d import sqrt, vcross, vdot, xla_cumsum
 
 
 @dataclasses.dataclass
@@ -63,6 +82,16 @@ class TraceData:
     env_r: torch.Tensor          # [He * We] flattened env channels
     env_g: torch.Tensor
     env_b: torch.Tensor
+    # physical mode: the environment's importance-sampling tables
+    # (models/envlight.py), each face's world area, the inclusive cdf of
+    # emission * area over all faces (zero-power faces carry no mass)
+    # and its total, the power
+    env_marginal_cdf: torch.Tensor     # [He]
+    env_conditional_cdf: torch.Tensor  # [He, We]
+    env_pdf: torch.Tensor              # [He, We]
+    face_area: torch.Tensor      # [F]
+    em_cdf: torch.Tensor         # [F]
+    em_power: torch.Tensor       # []
 
     @staticmethod
     def from_scene(scene: FlatScene) -> "TraceData":
@@ -82,8 +111,15 @@ class TraceData:
             scene.mtl_eta[fm][:, None],
             scene.mtl_metallic[fm][:, None]], dim=1).T.contiguous()
         env_flat = scene.env_radiance.reshape(-1, 3)
+        tri_verts = wv[idx]
+        # 0.5 |e1 x e2|, fused as XLA:CPU fuses the JAX package's
+        normal = vcross(tri_verts[:, 1] - tri_verts[:, 0],
+                        tri_verts[:, 2] - tri_verts[:, 0])
+        face_area = 0.5 * sqrt(vdot(normal, normal))
+        em_cdf = xla_cumsum(face_emission * face_area)
+        tables = build_env_tables(scene.env_radiance)
         return TraceData(
-            tri_verts=wv[idx], shade_packT=shade_packT,
+            tri_verts=tri_verts, shade_packT=shade_packT,
             face_emission=face_emission,
             light_kind=scene.light_kind, light_color=scene.light_color,
             light_intensity=scene.light_intensity,
@@ -93,11 +129,20 @@ class TraceData:
             env_radiance=scene.env_radiance,
             env_r=env_flat[:, 0].contiguous(),
             env_g=env_flat[:, 1].contiguous(),
-            env_b=env_flat[:, 2].contiguous())
+            env_b=env_flat[:, 2].contiguous(),
+            env_marginal_cdf=tables.marginal_cdf,
+            env_conditional_cdf=tables.conditional_cdf, env_pdf=tables.pdf,
+            face_area=face_area, em_cdf=em_cdf,
+            em_power=em_cdf[-1] if f > 0 else face_area.new_zeros(()))
 
     @property
     def n_lights(self) -> int:
         return self.light_kind.shape[0]
+
+    @property
+    def env_tables(self) -> EnvSamplingTables:
+        return EnvSamplingTables(self.env_marginal_cdf,
+                                 self.env_conditional_cdf, self.env_pdf)
 
 
 def gather(table, dim: int, idx):
@@ -154,6 +199,18 @@ class Scatter:
     lights: list            # per delta light: (direction toward it, radiance)
 
 
+def surface(st: Paths, miss, t, bu, bv, row):
+    """The interpolated unit shading normal and the hit point of each
+    lane: ((nx, ny, nz), (hx, hy, hz)); miss lanes get t = 1."""
+    t = torch.where(miss, 1.0, t)
+    bw = 1.0 - bu - bv
+    nx = (bw * row[0] + bu * row[3]) + bv * row[6]
+    ny = (bw * row[1] + bu * row[4]) + bv * row[7]
+    nz = (bw * row[2] + bu * row[5]) + bv * row[8]
+    n = shading_c.normalize_c(nx, ny, nz, eps=1e-20)
+    return n, tuple(o + t * d for o, d in zip(st.o, st.d))
+
+
 def scatter(st: Paths, miss, t, bu, bv, row, u, lights, n_lights: int):
     """Shade the hits of one bounce.
 
@@ -164,14 +221,8 @@ def scatter(st: Paths, miss, t, bu, bv, row, u, lights, n_lights: int):
     the [L, 16] table. Returns st with the emission of emissive hits
     added to its radiance (such a hit ends the path), and the Scatter.
     """
-    t = torch.where(miss, 1.0, t)
-    bw = 1.0 - bu - bv
-    nx = (bw * row[0] + bu * row[3]) + bv * row[6]
-    ny = (bw * row[1] + bu * row[4]) + bv * row[7]
-    nz = (bw * row[2] + bu * row[5]) + bv * row[8]
-    nx, ny, nz = shading_c.normalize_c(nx, ny, nz, eps=1e-20)
-    (ox, oy, oz), (dx, dy, dz) = st.o, st.d
-    hx, hy, hz = ox + t * dx, oy + t * dy, oz + t * dz
+    (nx, ny, nz), (hx, hy, hz) = surface(st, miss, t, bu, bv, row)
+    dx, dy, dz = st.d
     base = (row[9], row[10], row[11])
     emission, eta, metallic = row[12], row[13], row[14]
 
@@ -222,6 +273,141 @@ def end_bounce(st: Paths, sc: Scatter, hit2, em_table, unocc) -> Paths:
                   for tc, wc in zip(st.thr, sc.weight)),
         rad=rad, alive=live)
 
+def _unit(v):
+    """v [N, 3] / max(|v|, 1e-20)."""
+    return v / torch.clamp_min(sqrt(dot_c(*v.unbind(1), *v.unbind(1))),
+                               1e-20)[:, None]
+
+
+def physical_bounce(data: TraceData, cfg: RenderConfig, st: Paths, prev_spec,
+                    prev_pdf, fid, miss, t, bu, bv, row, u, lights,
+                    hit_query, depth: int):
+    """Shade and close one bounce of the physical estimator (JAX
+    integrator.py:587-792).
+
+    fid, miss, t, bu, bv [N]: the closest hit along st.d; row: the hit
+    face's 15 shading values; u: the bounce's 9 uniform rows (0-1 BSDF
+    hemisphere, 2 Fresnel coin, 3-4 environment NEE, 5 Russian roulette,
+    6 the emissive-face pick, 7-8 its surface point); hit_query(o, d,
+    mask) -> (fid, t, uv) detached. prev_spec [N] bool: the last bounce
+    was a camera ray or specular; prev_pdf [N]: its solid-angle pdf (0
+    there). Returns (paths, prev_spec, prev_pdf) after the bounce.
+    """
+    (nx, ny, nz), h = surface(st, miss, t, bu, bv, row)
+    dx, dy, dz = st.d
+    base = (row[9], row[10], row[11])
+    emission, eta, metallic = row[12], row[13], row[14]
+    n_faces = data.tri_verts.shape[0]
+
+    # Terminal: an emissive hit adds its emission, weighted in MIS
+    # against the emissive-face NEE below (solid-angle pdf p_nee =
+    # (emission / W) t^2 / cos_light); prev_pdf == 0 (camera or
+    # specular predecessor: NEE never samples those paths) keeps full
+    # weight. The geometric normal is the NEE sampler's, so the two
+    # balance weights of a path sum to 1.
+    emissive = emission > 0.0
+    hit_em = torch.where(st.alive & ~miss & emissive, emission, 0.0)
+    if cfg.area_nee:
+        w_power = data.em_power.detach()
+        tv_h = gather(data.tri_verts, 0, torch.clamp_min(fid, 0)).detach()
+        ng = _unit(vcross(tv_h[:, 1] - tv_h[:, 0], tv_h[:, 2] - tv_h[:, 0]))
+        cos_l = torch.abs(dot_c(dx, dy, dz, *ng.unbind(1)))
+        p_nee = torch.where(
+            w_power > 0.0,
+            (emission.detach() / torch.clamp_min(w_power, 1e-20))
+            * t * t / torch.clamp_min(cos_l, 1e-8), 0.0)
+        w_mis = torch.where(
+            prev_pdf > 0.0,
+            prev_pdf / torch.clamp_min(prev_pdf + p_nee, 1e-20), 1.0)
+        hit_em = hit_em * w_mis.detach()
+    rad = [r + tc * hit_em for r, tc in zip(st.rad, st.thr)]
+    live = st.alive & ~miss & ~emissive
+
+    ndx, ndy, ndz, ratio, is_spec = shading_c.sample_bsdf_c(
+        u[0], u[1], u[2], dx, dy, dz, nx, ny, nz, eta, metallic)
+    weight = [b * ratio for b in base]
+
+    # NEE on diffuse lanes (f = albedo / pi, times the cosine); specular
+    # lanes skip it (delta BSDF)
+    sgn = torch.where(dot_c(dx, dy, dz, nx, ny, nz) > 0.0, -1.0, 1.0)
+    n_side = (nx * sgn, ny * sgn, nz * sgn)
+    f_diff = [b * INV_PI for b in base]
+    diffuse = live & ~is_spec
+    hit_pos = torch.stack(h, dim=1)
+    direct = [torch.zeros_like(hit_em) for _ in range(3)]
+
+    def add(visible, amount):
+        for c in range(3):
+            direct[c] = direct[c] + torch.where(visible, amount[c], 0.0)
+
+    for li in range(data.n_lights):
+        *wi, lr, lg, lb = sample_delta_light(*h, lights[li])
+        cos_l = torch.clamp_min(dot_c(*wi, *n_side), 0.0)
+        ofid = hit_query(hit_pos, torch.stack(wi, dim=1), diffuse)[0]
+        add(ofid < 0, [fc * (cos_l * 1.0) * lc
+                       for fc, lc in zip(f_diff, (lr, lg, lb))])
+
+    # environment importance sampling
+    wi_e, pdf_e = sample_env_u(u[3:5].T, data.env_tables)
+    cos_e = torch.clamp_min(dot_c(*wi_e.unbind(1), *n_side), 0.0)
+    efid = hit_query(hit_pos, wi_e, diffuse)[0]
+    env_e = env_lookup(data.env_radiance, wi_e) * cfg.env_scale
+    w_env = torch.where(pdf_e > 0.0, cos_e / torch.clamp_min(pdf_e, 1e-12),
+                        0.0)
+    add(efid < 0, [fc * w_env * env_e[:, c] for c, fc in enumerate(f_diff)])
+
+    if cfg.area_nee:
+        # a face picked by power (inverse cdf over all faces), a uniform
+        # point on it, one shadow query, the balance heuristic against
+        # the cosine-lobe pdf; the sampling is detached (path replay),
+        # the radiance term is not
+        cdf = data.em_cdf.detach()
+        w_power = cdf[-1]
+        fsel = torch.clamp(torch.searchsorted(cdf, u[6] * w_power), 0,
+                           n_faces - 1)
+        tv_s = gather(data.tri_verts, 0, fsel)
+        y = triangle_uniform_u(u[7], u[8], tv_s[:, 0], tv_s[:, 1], tv_s[:, 2])
+        d_vec = y.detach() - hit_pos
+        dist2 = torch.clamp_min(dot_c(*d_vec.unbind(1), *d_vec.unbind(1)),
+                                1e-12)
+        wi_a = d_vec / sqrt(dist2)[:, None]
+        n_s = _unit(vcross(tv_s[:, 1] - tv_s[:, 0], tv_s[:, 2] - tv_s[:, 0]))
+        cos_x = torch.clamp_min(dot_c(*wi_a.unbind(1), *n_side), 0.0)
+        cos_y = torch.abs(dot_c(*wi_a.unbind(1), *n_s.detach().unbind(1)))
+        em_s = gather(data.face_emission, 0, fsel)
+        want = diffuse & (w_power > 0.0) & (em_s > 0.0)
+        sfid = hit_query(hit_pos, wi_a, want)[0]
+        visible = want & (sfid == fsel)
+        p_area = em_s.detach() / torch.clamp_min(w_power, 1e-20)
+        p_nee_w = p_area * dist2 / torch.clamp_min(cos_y, 1e-8)
+        w_mis = (p_nee_w / torch.clamp_min(p_nee_w + cos_x * INV_PI,
+                                           1e-20)).detach()
+        amt = (em_s * cos_x * cos_y
+               / (dist2 * torch.clamp_min(p_area, 1e-20))) * w_mis
+        add(visible, [fc * amt for fc in f_diff])
+    rad = [r + torch.where(diffuse, tc * dc, 0.0)
+           for r, tc, dc in zip(rad, st.thr, direct)]
+
+    thr = [torch.where(live, tc * wc, tc) for tc, wc in zip(st.thr, weight)]
+    o = tuple(torch.where(live, hc, oc) for hc, oc in zip(h, st.o))
+    d = tuple(torch.where(live, n, dc) for n, dc in zip((ndx, ndy, ndz), st.d))
+    prev_spec = torch.where(live, is_spec, prev_spec)
+    # the diffuse draw's solid-angle pdf, 0 for specular (the emissive
+    # MIS above then gives full weight); n_side is the pre-update side
+    cos_nd = torch.clamp_min(dot_c(ndx, ndy, ndz, *n_side), 0.0)
+    pdf_draw = torch.where(is_spec, 0.0, cos_nd * INV_PI)
+    prev_pdf = torch.where(live, pdf_draw.detach(), prev_pdf)
+    if cfg.russian_roulette:
+        p_sur = torch.clamp(torch.maximum(torch.maximum(thr[0], thr[1]),
+                                          thr[2]), 0.05, 1.0)
+        late = depth >= 3
+        kill = live & late & (u[5] >= p_sur)
+        scale = torch.where(live & late, 1.0 / p_sur, 1.0)
+        thr = [tc * scale for tc in thr]
+        live = live & ~kill
+    return (Paths(o=o, d=d, thr=tuple(thr), rad=tuple(rad), alive=live),
+            prev_spec, prev_pdf)
+
 
 class _HitSurface(torch.autograd.Function):
     """The intersector's own (t, u, v) as the primal hit data, with
@@ -269,8 +455,9 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
     """Trace a batch of rays to completion; returns radiance [N, 3].
 
     lane_keys: [N, 2] keys, one per ray lane. Every draw of a bounce
-    comes from the lane's key (`lane_uniform(fold_all(keys, depth), 6)`),
-    so results do not depend on batching. uniforms: those draws
+    comes from the lane's key (`lane_uniform(fold_all(keys, depth), m)`,
+    m = 6 in reference mode, 9 in physical mode), so results do not
+    depend on batching. uniforms (reference mode): those draws
     precomputed, [8 * max_depth, N] (ops/mega.py `bounce_uniforms`);
     lane_keys is then not read. The loop stops when every lane is dead:
     dead lanes never change state.
@@ -279,8 +466,12 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
     megakernel forward, ops/mega.py `unpack_hits`): (fid [D, N], t
     [D, N], uv [D, N, 2], fid2 [D, N], occ [D, N], the delta-light
     occlusion bits). When given, no intersector runs (closest_hit may be
-    None): the loop replays the shading on the recorded hits.
+    None): the loop replays the shading on the recorded hits. Reference
+    mode only.
     """
+    physical = cfg.mode == "physical"
+    if physical and (stored_hits is not None or uniforms is not None):
+        raise ValueError("stored_hits and uniforms are reference mode only")
     def hit_query(o, d, mask):
         # the discrete traversal is detached; _HitSurface restores the
         # surface point's gradient
@@ -288,29 +479,41 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
         return fid, t.detach(), uv.detach()
 
     st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
+    # physical mode: the previous bounce was a camera ray or specular,
+    # and its solid-angle pdf (0 there)
+    prev_spec = st.alive
+    prev_pdf = torch.zeros_like(st.thr[0])
     lights = lights_block(data)
     for depth in range(cfg.max_depth):
         if not bool(st.alive.any()):
             break
-        u = (lane_uniform(fold_all(lane_keys, depth), 6).T if uniforms is None
-             else uniforms[8 * depth:8 * depth + 6])
+        u = (lane_uniform(fold_all(lane_keys, depth), 9 if physical else 6).T
+             if uniforms is None else uniforms[8 * depth:8 * depth + 6])
         o3, d3 = torch.stack(st.o, dim=1), torch.stack(st.d, dim=1)
         if stored_hits is None:
             fid, t_k, uv = hit_query(o3, d3, st.alive)
         else:
             fid, t_k, uv = (h[depth] for h in stored_hits[:3])
         miss = fid < 0
-        # Terminal: environment on miss
+        # Terminal: environment on miss; in physical mode only after a
+        # camera or specular bounce (diffuse bounces count the dome by
+        # its NEE)
         env = env_miss(data, cfg, *st.d)
         count_env = st.alive & miss
+        if physical:
+            count_env = count_env & prev_spec
         st.rad = tuple(r + tc * torch.where(count_env, e, 0.0)
                        for r, tc, e in zip(st.rad, st.thr, env))
         t, bu, bv = _HitSurface.apply(o3, d3, data.tri_verts, fid,
                                       torch.where(miss, 1.0, t_k),
                                       uv[:, 0], uv[:, 1])
-        st, sc = scatter(st, miss, t, bu, bv,
-                         gather(data.shade_packT, 1, torch.clamp_min(fid, 0)),
-                         u, lights, data.n_lights)
+        row = gather(data.shade_packT, 1, torch.clamp_min(fid, 0))
+        if physical:
+            st, prev_spec, prev_pdf = physical_bounce(
+                data, cfg, st, prev_spec, prev_pdf, fid, miss, t, bu, bv, row,
+                u, lights, hit_query, depth)
+            continue
+        st, sc = scatter(st, miss, t, bu, bv, row, u, lights, data.n_lights)
         if stored_hits is None:
             h3 = torch.stack(sc.h, dim=1)
             fid2, _, _ = hit_query(h3, torch.stack(sc.d2, dim=1),

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from tinypathtracer_tpu_torch.ops.sampling import uniform
 from tinypathtracer_tpu_torch.ops.shading_c import normalize_c
 
 
@@ -29,3 +30,10 @@ def camera_rays_u(u, cam_to_world, yfov, aspect, px, py, width, height):
     d = [(cx * rot[i, 0] + cy * rot[i, 1]) + cz * rot[i, 2] for i in range(3)]
     d = torch.stack(normalize_c(*d), dim=1)
     return cam_to_world[:3, 3].expand_as(d), d
+
+
+def camera_rays(key, cam_to_world, yfov, aspect, px, py, width, height):
+    """Key-based wrapper over camera_rays_u: one [2] key, draws
+    `uniform(key, px.shape + (2,))`."""
+    u = uniform(key, tuple(px.shape) + (2,))
+    return camera_rays_u(u, cam_to_world, yfov, aspect, px, py, width, height)

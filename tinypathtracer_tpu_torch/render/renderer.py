@@ -1,5 +1,8 @@
 """Renderer: scene -> image (port of `tinypathtracer_tpu/render/renderer.py`).
 
+`render(scene, cfg, key)` is the one-shot entry point for a loaded glTF
+`Scene` (models/scene.load_scene); `Renderer` renders FlatScenes.
+
 Per frame: world geometry and shading tables (`prepare_state`), then
 the (pixel, sample) lanes flattened into one ray axis and traced in
 chunks of up to `cfg.rays_per_dispatch` rays. Each lane derives its key
@@ -8,7 +11,8 @@ chunking. A chunk runs the megakernel (ops/mega.py) when the scene
 qualifies and `cfg.megakernel` is set, else the modular bounce loop
 (render/integrator.py) on the dense closest hit (ops/dense.py) or,
 above 8192 padded faces or on request, the packet traversal
-(ops/packet.py): `resolve_intersector`. The oracles "bvh" (the LBVH
+(ops/packet.py): `resolve_intersector`. Physical mode always runs the
+modular loop (the megakernel is reference mode only). The oracles "bvh" (the LBVH
 walk, ops/traverse.py) and "bruteforce" (ops/intersect.py) run the
 modular loop only; `Renderer` refuses a tree deeper than the bvh walk's
 stack holds.
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from tinypathtracer_tpu_torch.config import RenderConfig
-from tinypathtracer_tpu_torch.models.scene import FlatScene
+from tinypathtracer_tpu_torch.models.scene import FlatScene, Scene
 from tinypathtracer_tpu_torch.ops.dense import (WoopTris, closest_hit_dense,
                                                 precompute_woop)
 from tinypathtracer_tpu_torch.ops.intersect import closest_hit_bruteforce
@@ -247,3 +251,13 @@ class Renderer:
             rad_sum = render_frame(scene.to(self.device), self.cfg,
                                    key.to(self.device), self._bvh_for(scene))
             return film.to_image(rad_sum, self.cfg.spp)
+
+
+def render(scene: Scene, cfg: RenderConfig, key, env_radiance=None,
+           device="cuda"):
+    """One-shot: flatten a loaded scene onto the device (the card unless
+    the caller asks for "cpu") and render its mean-radiance image
+    [H, W, 3], top-down rows."""
+    dev = resolve_device(device, "render")
+    flat = scene.flatten(env_radiance=env_radiance, device=dev)
+    return Renderer(cfg, device=dev).render(flat, key)

@@ -1,11 +1,14 @@
-"""The host LBVH builder, through ctypes (port of
-`tinypathtracer_tpu/utils/native.py`'s `build_lbvh_host`).
+"""The native host library through ctypes (port of
+`tinypathtracer_tpu/utils/native.py`): the LBVH builder and the base64
+decoder of glTF data URIs.
 
-The C++ builder is the repository's `csrc/tpt_native.cpp` (read, never
+The C++ source is the repository's `csrc/tpt_native.cpp` (read, never
 changed here), compiled with g++ at first use into the port's `_build/`
 under a name keyed by a hash of the source and flags. No fallback: if
-the library does not build, `build_lbvh_host` raises
-(`RenderConfig(bvh_source="device")` is the explicit alternative).
+the library does not build, `build_lbvh_host` and `b64_decode` raise
+(`RenderConfig(bvh_source="device")` is the explicit alternative to the
+first). The JAX package falls back to the standard library's decoder
+without saying so; the port does not.
 """
 
 from __future__ import annotations
@@ -41,7 +44,21 @@ def _lib() -> ctypes.CDLL:
     fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
     cdll.tpt_build_lbvh.restype = ctypes.c_int
     cdll.tpt_build_lbvh.argtypes = [fp, ctypes.c_int] + [ip] * 4 + [fp] * 2
+    cdll.tpt_b64_decode.restype = ctypes.c_longlong
+    cdll.tpt_b64_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                                    ctypes.POINTER(ctypes.c_ubyte)]
     return cdll
+
+
+def b64_decode(payload: str) -> bytes:
+    """Decode a base64 payload (a glTF data URI's text after the comma)."""
+    raw = payload.encode("ascii")
+    out = np.empty(len(raw) * 3 // 4 + 3, dtype=np.uint8)
+    n = _lib().tpt_b64_decode(
+        raw, len(raw), out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)))
+    if n < 0:
+        raise ValueError("invalid base64 payload")
+    return out[:n].tobytes()
 
 
 def build_lbvh_host(tri_verts: np.ndarray) -> dict:
