@@ -124,7 +124,9 @@ non-zero):
  19. kernel A against its twin on one 2**20-lane chunk's
      environment-NEE and area-NEE queries (masked to the diffuse lanes)
      of the physical room, bounces 0 and 1, kernel C on the large
-     scene's (bounce 0), captured from the frame's trace; exactly;
+     scene's (bounce 0), captured from the frame's trace; exactly; then
+     each kernel's time and bound on every query of that chunk's trace
+     (query_bounds: masked lanes cost nothing), by kind of query;
  20. the large physical frame forced onto kernel A: bit-equal to the
      packet frame;
  21. a 64x64 @4 spp d8 physical room frame on kernel A against the
@@ -134,7 +136,34 @@ non-zero):
      leaves); the frames within 1e-5 but on at most
      PHYSICAL_ORACLE_PIXELS counted pixels;
  22. the physical room's train step at full width: a warm-up with its
-     gradients checked finite, 3 timed steps, peak memory.
+     gradients checked finite, 3 timed steps, peak memory;
+ 23. the textured room (sphere_grid_scene(2, 8, 16, textured=True), the
+     64x64 checker atlas) at 512x512 @16 spp d8 through Renderer.render,
+     launch counters zeroed before each route: the megakernel route
+     (kernel B's save_hits instance once a chunk, hits only, then the
+     shading replay) and the modular route (kernel A), best of 3 each,
+     bit-equal; one bilinear-filtered frame; kernel B against its twin
+     on the textured room's 64x64 @4 spp operands;
+ 24. the textured room's train step (Params.tex_atlas): a warm-up, 3
+     timed steps, peak memory, save_hits only; the megakernel route's
+     texel, albedo and env gradients against the modular route's at
+     64x64 @4 spp d8 (rtol 1e-5);
+ 25. the textured large scene's frame (kernel C only), the textured
+     room's physical frame (kernel A, 96 launches a frame), and the
+     textured room written by write_gltf (its atlas as 8-bit PNG) and
+     loaded: equal to the procedural room with the quantised atlas, its
+     one-shot render(...) frame bit-equal to that room's;
+ 26. Renderer.progressive: the textured room as 2 steps of 8 spp with
+     save / load between them, bit-equal to an uninterrupted run and
+     within 1e-5 of Renderer.render; then the 1920x1080 @64 spp d8
+     textured forward as 4 steps of 16 spp (ms a step, total, rays/s,
+     peak memory);
+ 27. the normal, depth and hitmask AOVs at 512x512 @16 spp on the
+     textured room (kernel A) and the textured large scene (kernel C),
+     each equal at 64x64 to the AOV through the twin route;
+ 28. `python -m tinypathtracer_tpu_torch.tools.render_cli` as a
+     subprocess on the written textured room, with --stats and with
+     --aov normal: each PNG equal byte for byte to the in-process one.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s;
@@ -266,6 +295,26 @@ def _f(x) -> list:
     return [float(v) for v in np.asarray(x, np.float32).reshape(-1)]
 
 
+def quantised_atlas(atlas) -> np.ndarray:
+    """The atlas as its 8-bit PNG reads back: round(a * 255) / 255 in
+    float32, values clipped to [0, 1]."""
+    q = np.round(np.clip(np.asarray(atlas, np.float64), 0.0, 1.0) * 255.0)
+    return q.astype(np.uint8).astype(np.float32) / 255.0
+
+
+def _png_uri(layer) -> str:
+    """An [H, W, 3] layer in [0, 1] as an 8-bit PNG data URI (PIL)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.round(np.clip(np.asarray(layer, np.float64), 0.0, 1.0)
+                             * 255.0).astype(np.uint8)).save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+
+
 def gltf_document(arrays: dict) -> dict:
     """A glTF document that `load_scene(...).flatten(env)` turns back into
     the scene of `arrays` (a FlatScene's fields as numpy arrays, one
@@ -276,7 +325,11 @@ def gltf_document(arrays: dict) -> dict:
     that no face uses are not written (the reader keeps only the
     materials of meshes), so material indices may shift. Each light is
     a KHR_lights_punctual node whose rotation aims -z at its direction;
-    each value reads back to the same float32."""
+    each value reads back to the same float32. A textured scene (an
+    atlas that is not the [1, 1, 1, 3] sentinel) writes TEXCOORD_0 on
+    every mesh (read back exactly) and each atlas layer as an 8-bit PNG
+    texture that its materials reference as baseColorTexture: it reads
+    back as quantised_atlas(tex_atlas)."""
     mats = np.asarray(arrays["vert_mats"])
     if not np.array_equal(mats, np.broadcast_to(np.eye(4), mats.shape)):
         raise ValueError("gltf_document writes scenes of identity objects")
@@ -285,6 +338,8 @@ def gltf_document(arrays: dict) -> dict:
     cut = np.flatnonzero(np.diff(fm)) + 1
     runs = np.split(np.arange(len(fm)), cut)
     starts = [int(idx[r].min()) for r in runs] + [len(arrays["vertices"])]
+    atlas = np.asarray(arrays["tex_atlas"])
+    textured = any(n > 1 for n in atlas.shape[:3])
     blob, views, accessors, meshes, nodes = bytearray(), [], [], [], []
 
     def add(data, ctype, typ):
@@ -307,6 +362,9 @@ def gltf_document(arrays: dict) -> dict:
                                             np.float32), 5126, "VEC3"),
                  "NORMAL": add(np.asarray(arrays["normals"][v0:v1],
                                           np.float32), 5126, "VEC3")}
+        if textured:
+            attrs["TEXCOORD_0"] = add(np.asarray(arrays["texcoords"][v0:v1],
+                                                 np.float32), 5126, "VEC2")
         ind = add(local.reshape(-1).astype(np.uint32), 5125, "SCALAR")
         meshes.append({"primitives": [{"attributes": attrs, "indices": ind,
                                        "material": int(fm[r[0]])}]})
@@ -323,13 +381,13 @@ def gltf_document(arrays: dict) -> dict:
         if arrays["mtl_specular"][m] != np.float32(0.5):
             ext["KHR_materials_transmission"] = {"transmissionFactor": 5.0 * (
                 1.0 - _f(arrays["mtl_specular"][m])[0])}
-        materials.append({
-            "name": f"m{m:03d}",
-            "pbrMetallicRoughness": {
-                "baseColorFactor": _f(arrays["mtl_base_color"][m]) + [1.0],
-                "metallicFactor": _f(arrays["mtl_metallic"][m])[0],
-                "roughnessFactor": _f(arrays["mtl_roughness"][m])[0]},
-            **({"extensions": ext} if ext else {})})
+        pbr = {"baseColorFactor": _f(arrays["mtl_base_color"][m]) + [1.0],
+               "metallicFactor": _f(arrays["mtl_metallic"][m])[0],
+               "roughnessFactor": _f(arrays["mtl_roughness"][m])[0]}
+        if textured and int(arrays["mtl_tex_id"][m]) >= 0:
+            pbr["baseColorTexture"] = {"index": int(arrays["mtl_tex_id"][m])}
+        materials.append({"name": f"m{m:03d}", "pbrMetallicRoughness": pbr,
+                          **({"extensions": ext} if ext else {})})
 
     lights = []
     kinds = {0: "point", 1: "directional", 2: "spot"}
@@ -362,6 +420,9 @@ def gltf_document(arrays: dict) -> dict:
             "znear": _f(arrays["cam_znear"])[0]}}],
         "nodes": nodes, "scenes": [{"nodes": list(range(len(nodes)))}],
         "scene": 0}
+    if textured:
+        doc["images"] = [{"uri": _png_uri(layer)} for layer in atlas]
+        doc["textures"] = [{"source": t} for t in range(len(atlas))]
     if lights:
         doc["extensionsUsed"] = ["KHR_lights_punctual"]
         doc["extensions"] = {"KHR_lights_punctual": {"lights": lights}}
@@ -1067,10 +1128,10 @@ def frame_packet_bound(render, pk):
 
 
 def compare_grads(T, scene, cfg, name):
-    """Phase 8: Params gradients of the MSE loss through the megakernel
-    (stored-hit replay) against the modular path (kernel A hits, the same
-    replay) on the card, rtol GRAD_RTOL plus 1e-6 of the largest
-    gradient."""
+    """Phases 8 and 24: Params gradients of the MSE loss through the
+    megakernel (stored-hit replay) against the modular path (kernel A
+    hits, the same replay) on the card, rtol GRAD_RTOL plus 1e-6 of the
+    largest gradient. Returns the megakernel route's gradients."""
     from tinypathtracer_tpu_torch.diff import invrender as inv
 
     dev = scene.device
@@ -1097,6 +1158,7 @@ def compare_grads(T, scene, cfg, name):
         f"{g_all:.4e})")
     if abs(float(la) - float(lb)) > 1e-6 * abs(float(lb)):
         raise AssertionError(f"{name}: megakernel and modular losses differ")
+    return ga
 
 
 def mega_frame_operands(scene, cfg, key, n_pix=None):
@@ -1330,9 +1392,10 @@ def scene_arrays(scene) -> dict:
 
 
 def check_loaded(procedural, loaded, what):
-    """Phase 17's check: a loaded glTF scene against the procedural scene
-    it was written from, bit for bit: world geometry, faces, per-face
-    material values, delta lights, camera, dome and atlas."""
+    """Phases 17 and 25's check: a loaded glTF scene against the
+    procedural scene it was written from, bit for bit: world geometry,
+    faces, texcoords, per-face material values and texture layers, delta
+    lights, camera, dome and atlas."""
     from tinypathtracer_tpu_torch.models.scene import FlatScene
 
     procedural = procedural.to(loaded.device)
@@ -1343,11 +1406,11 @@ def check_loaded(procedural, loaded, what):
     fm_p, fm_l = procedural.face_mtl.long(), loaded.face_mtl.long()
     for f in dataclasses.fields(FlatScene):
         a, b = getattr(procedural, f.name), getattr(loaded, f.name)
-        if f.name.startswith("mtl_") and f.name != "mtl_tex_id":
+        if f.name.startswith("mtl_"):
             a, b = a[fm_p], b[fm_l]
         elif f.name in ("vertices", "normals", "vert_mats", "normal_mats",
                         "obj_face_begin", "obj_mtl_idx", "face_mtl",
-                        "vert_obj", "mtl_tex_id"):
+                        "vert_obj"):
             continue        # object tables: a mesh per material run
         if not torch.equal(a, b):
             bad.append(f.name)
@@ -1488,15 +1551,58 @@ def capture_queries(T, scene, cfg, key, n_lanes):
     return st, queries
 
 
+def query_bounds(st, queries, per):
+    """Kernel A's (or, where the state holds packet tables, C's) time and
+    bound on every captured query of one chunk's physical trace: per
+    bounce the main ray, the delta lights, the environment NEE and the
+    area NEE (`per` queries a bounce). The bound counts this run's work
+    (tools/common.py): kernel A all pairs of the live (unmasked) rays
+    and the real faces, o' once per distinct origin and face
+    (lab_dense.dense_pairs); kernel C from each ray's visits
+    (packet_work). Returns {kind: (queries, mean ms a launch, mean bound
+    ms, the bound's kind)} with kinds "main", "light", "environment NEE",
+    "area NEE" and "all": the count of captured queries of that kind,
+    each timed apart from the main path's launch counts."""
+    from tinypathtracer_tpu_torch.ops import dense, packet
+    from tinypathtracer_tpu_torch.tools import lab_dense
+
+    rows = {}
+    for q, (o, d, mask) in enumerate(queries):
+        pos = q % per
+        kind = ("main" if pos == 0 else "environment NEE" if pos == per - 2
+                else "area NEE" if pos == per - 1 else "light")
+        n = o.shape[0]
+        if st.packet is None:
+            rays = torch.cat([o, d, o.new_zeros((n, 2))], 1).contiguous()
+            ms, _ = cuda_ms(lambda: dense.dense_hit(rays, st.woop, mask), 3)
+            work = lab_dense.dense_pairs(rays, st.woop, mask)
+        else:
+            pk = st.packet
+            rays = torch.cat([o, d, mask.float()[:, None],
+                              o.new_zeros((n, 1))], 1).contiguous()
+            ms, out = cuda_ms(lambda: packet.packet_hit(
+                rays, pk.woop.planes, pk.boxes, pk.tc), 3)
+            work = packet_work(rays, out[3], pk)
+        b_ms, b_by = bound(*work)
+        for k in (kind, "all"):
+            rows.setdefault(k, []).append((ms, b_ms, b_by))
+    return {k: (len(v), sum(r[0] for r in v) / len(v),
+                sum(r[1] for r in v) / len(v),
+                max(set(r[2] for r in v), key=[r[2] for r in v].count))
+            for k, v in rows.items()}
+
+
 def nee_vs_twins(T, scenes, sky, key, pcfg, dev):
     """Phase 19: kernel A on one 2**20-lane chunk's environment-NEE and
     area-NEE queries of the physical room (bounces 0 and 1), kernel C on
     the large scene's (bounce 0), each captured from the frame's own
-    trace, against its plain twin on the card, exactly. Returns (max |uv|
-    error of A, of C)."""
+    trace, against its plain twin on the card, exactly; then each
+    kernel's time and bound on every query of that chunk's trace
+    (query_bounds). Returns (max |uv| error of A, of C, {"A": A's
+    query_bounds on the room, "C": C's on the large scene})."""
     from tinypathtracer_tpu_torch.ops import dense, packet
 
-    errs = []
+    errs, query_rows = [], {}
     for name, bounces in (("room", (0, 1)), ("large scene", (0,))):
         scene = scenes[name].flatten(sky, device=dev)
         st, queries = capture_queries(T, scene, pcfg, key.to(dev),
@@ -1541,8 +1647,14 @@ def nee_vs_twins(T, scenes, sky, key, pcfg, dev):
                     f"{float((got[1][mask] >= 0).float().mean()):.4f}; twin "
                     f"{time.perf_counter() - t0:.1f} s")
         errs.append(err)
+        label = "A" if st.packet is None else "C"
+        query_rows[label] = query_bounds(st, queries, per)
+        for k, (count, ms, b_ms, b_by) in query_rows[label].items():
+            log(f"kernel {label}, physical {name}, one 2**20-lane chunk's "
+                f"{k} queries: {count} queries, {ms:.3f} ms a launch, bound "
+                f"{b_ms:.3f} ms ({b_by}), {ms / b_ms:.1f}x")
         del queries, st
-    return tuple(errs)
+    return errs[0], errs[1], query_rows
 
 
 def physical_large_on_a(T, scene, sky, key, pcfg, packet_frame, dev):
@@ -1694,6 +1806,419 @@ def physical_train(T, scene, sky, pcfg, dev):
         raise AssertionError(f"the physical step must run kernel A only: "
                              f"{launches}")
     return best * 1e3, peak, launches["dense"]
+
+
+# ---- phases 23-28: textures, progressive rendering, AOVs, the CLI ----------
+
+def add_launches(total, launches):
+    """Add one run's launch counts to a running total (in place)."""
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_image(img, cfg, what, lit=0.01):
+    """A frame of cfg's shape, finite, non-negative and lit."""
+    if not (img.shape == (cfg.height, cfg.width, 3)
+            and bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+            and float(img.mean()) > lit):
+        raise AssertionError(f"{what} is not a finite, non-negative, lit "
+                             f"image of {cfg.height}x{cfg.width}")
+
+
+def timed_frames(render, reps):
+    """(best s, spread s, the last result) of reps render() calls, each
+    ended by a synchronise."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = render()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times), max(times) - min(times), out
+
+
+def chunks_of(cfg, spp=None):
+    """The ray chunks of one pass of spp samples (cfg.spp by default):
+    whole pixels of up to cfg.rays_per_dispatch lanes each."""
+    spp = cfg.spp if spp is None else spp
+    return -(-cfg.n_pixels // (cfg.rays_per_dispatch // spp))
+
+
+def textured_room_frames(T, room_t, cfg, key, dev):
+    """Phase 23: the textured room's full-width reference frame through
+    Renderer.render, launch counters zeroed before each route's frames
+    and read after: the megakernel route (kernel B's save_hits instance
+    once a chunk, hits only, then the shading replay; no forward
+    instance, no kernel A) and the modular route (kernel A, no kernel B),
+    best of 3 each, bit-equal; one bilinear-filtered megakernel frame,
+    which must differ from the point frame. Then kernel B against its
+    twin on the textured room's 64x64 @4 spp operands. One profiled
+    frame of each of the first two routes (its kernel's ms a launch).
+    Returns ({route: (best ms, spread ms, launches, kernel ms a launch or
+    None)}, the point megakernel frame, the launches, (kernel B's and its
+    save_hits instance's max error))."""
+    n_rays = cfg.n_pixels * cfg.spp
+    chunks = chunks_of(cfg)
+    out, images, total = {}, {}, {}
+    for route, extra, reps in (("megakernel", {}, 3),
+                               ("modular", {"megakernel": False}, 3),
+                               ("bilinear megakernel",
+                                {"tex_filter": "bilinear"}, 1)):
+        r = T.Renderer(dataclasses.replace(cfg, **extra), device="cuda")
+        zero_launches()
+        best, spread, img = timed_frames(lambda: r.render(room_t, key), reps)
+        launches = read_launches()
+        add_launches(total, launches)
+        check_image(img, cfg, f"textured room {route} frame")
+        if route == "modular":
+            ok = (launches["dense"] > 0 and launches["mega"] == 0
+                  and launches["mega_save_hits"] == 0)
+        else:
+            ok = (launches["mega_save_hits"] == reps * chunks
+                  and launches["mega"] == 0 and launches["dense"] == 0
+                  and launches["packet"] == 0)
+        if not ok:
+            raise AssertionError(f"textured room {route} frames launched "
+                                 f"{launches} in {reps} frames")
+        log(f"textured room, {route}: {cfg.width}x{cfg.height} @{cfg.spp}spp "
+            f"d{cfg.max_depth}, {n_rays} camera rays: best of {reps} "
+            f"{best * 1e3:.1f} ms (spread {spread * 1e3:.1f} ms), "
+            f"{n_rays / best:,.0f} rays/s, image mean {float(img.mean()):.5f}; "
+            f"launches in {reps} frames {launches}")
+        kernel_ms = None
+        if reps > 1:            # where the frame's device time goes
+            label, symbol = (("A", "dense_hit_kernel") if route == "modular"
+                             else ("B", "mega_kernel"))
+            kernel_ms = log_kernel_share(
+                f"textured room {route} frame",
+                profile_step(f"textured room {route} frame", r.render,
+                             room_t, key), label, symbol)
+        out[route] = (best * 1e3, spread * 1e3, launches, kernel_ms)
+        images[route] = img
+    if not torch.equal(images["megakernel"], images["modular"]):
+        mx, share, mean = compare_images(images["megakernel"],
+                                         images["modular"])
+        raise AssertionError(f"textured megakernel and modular frames "
+                             f"differ: max {mx}, share {share}, mean {mean}")
+    mx, share, mean = compare_images(images["bilinear megakernel"],
+                                     images["megakernel"])
+    log(f"textured room: the megakernel frame equals the modular frame bit "
+        f"for bit; bilinear against point: max abs diff {mx:.3e}, share of "
+        f"pixels > 1e-5 {share:.3f}")
+    if mx == 0.0:
+        raise AssertionError("the bilinear frame equals the point frame")
+    small = T.RenderConfig(width=64, height=64, spp=4, max_depth=8)
+    ops, _ = mega_frame_operands(room_t.to(dev), small, T.prng_key(1, dev))
+    errs = mega_vs_twin(ops, 0, f"textured room, {ops[0].shape[1]}")
+    return out, images["megakernel"], total, errs
+
+
+def textured_train(T, room_t, cfg, small, dev):
+    """Phase 24: the textured room's full-width train step through
+    make_train_step, Params.tex_atlas among the leaves: one warm-up step
+    and 3 timed, peak memory; kernel B's save_hits instance once a chunk
+    and nothing else (the forward replays the shading under autograd);
+    the texels move. Then the megakernel route's gradients against the
+    modular route's at 64x64 @4 spp d8 (compare_grads, rtol GRAD_RTOL),
+    texels, albedo and env non-zero. Returns (best ms, peak GiB,
+    launches)."""
+    from tinypathtracer_tpu_torch.diff import invrender as inv
+
+    scene = room_t.to(dev)
+    params = inv.Params.from_scene(scene)
+    state = inv.AdamState.init(params)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    step = inv.make_train_step(cfg, LR, device="cuda")
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    best, n_steps = float("inf"), 4
+    for i in range(n_steps):              # one warm-up step, then 3 timed
+        t0 = time.perf_counter()
+        new_params, _, loss = step(params, state, scene, target,
+                                   T.prng_key(i + 1, dev))
+        loss = float(loss)
+        torch.cuda.synchronize()
+        if i:
+            best = min(best, time.perf_counter() - t0)
+        if not (math.isfinite(loss) and all(
+                torch.isfinite(x).all() for x in new_params.leaves())):
+            raise AssertionError(f"textured step {i}: loss {loss} or the "
+                                 f"parameters are not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    n_rays = cfg.n_pixels * cfg.spp
+    moved = float((new_params.tex_atlas - params.tex_atlas).abs().max())
+    log(f"textured room train step: best of 3 {best * 1e3:.1f} ms, "
+        f"{n_rays / best:,.0f} fwd+bwd camera rays/s, loss {loss:.6f}; peak "
+        f"memory {peak:.2f} GiB; texels moved by up to {moved:.3e}; launches "
+        f"in {n_steps} steps {launches}")
+    want = n_steps * chunks_of(cfg)
+    if not (launches["mega_save_hits"] == want and launches["mega"] == 0
+            and launches["dense"] == 0 and launches["packet"] == 0):
+        raise AssertionError(f"the textured step must launch the save_hits "
+                             f"instance once a chunk ({want}) and nothing "
+                             f"else: {launches}")
+    if not moved > 0.5 * LR:
+        raise AssertionError("the textured step did not move the texels")
+    grads = compare_grads(T, scene, small, "textured room")
+    for f in ("tex_atlas", "mtl_base_color", "env_radiance"):
+        if not bool((getattr(grads, f) != 0).any()):
+            raise AssertionError(f"textured room: the gradient of {f} is 0")
+    return best * 1e3, peak, launches
+
+
+def textured_other_scenes(T, sky, key, cfg, room_t, large_t, tmp, dev):
+    """Phase 25: the textured large scene's full-width frame (kernel C,
+    neither A nor B), the textured room's physical frame (kernel A,
+    max_depth x 3 x chunks launches a frame, no B), each best of 2; the
+    textured room written by write_gltf (texcoords, the atlas as an 8-bit
+    PNG) and loaded through load_scene: equal to the procedural room
+    that carries the quantised atlas (check_loaded), and its one-shot
+    render(...) frame equal to that room's frame bit for bit. Returns
+    ({scene: (best ms, spread ms, launches)}, the .gltf path, the
+    launches)."""
+    n_rays = cfg.n_pixels * cfg.spp
+    chunks = chunks_of(cfg)
+    out, total = {}, {}
+    pcfg = dataclasses.replace(cfg, mode="physical")
+    for name, scene, c, kernel, want in (
+            ("large scene", large_t, cfg, "packet",
+             2 * cfg.max_depth * 2 * chunks),
+            ("physical room", room_t, pcfg, "dense",
+             2 * pcfg.max_depth * 3 * chunks)):
+        r = T.Renderer(c, device="cuda")
+        zero_launches()
+        best, spread, img = timed_frames(lambda: r.render(scene, key), 2)
+        launches = read_launches()
+        add_launches(total, launches)
+        check_image(img, c, f"textured {name} frame")
+        other = "dense" if kernel == "packet" else "packet"
+        if not (launches[kernel] == want and launches[other] == 0
+                and launches["mega"] == 0 and launches["mega_save_hits"] == 0):
+            raise AssertionError(f"textured {name}: want {want} launches of "
+                                 f"{kernel} only in 2 frames, got {launches}")
+        log(f"textured {name}: {c.width}x{c.height} @{c.spp}spp "
+            f"d{c.max_depth}, {c.mode}: best of 2 {best * 1e3:.1f} ms (spread "
+            f"{spread * 1e3:.1f} ms), {n_rays / best:,.0f} rays/s, image mean "
+            f"{float(img.mean()):.5f}; launches in 2 frames {launches}")
+        out[name] = (best * 1e3, spread * 1e3, launches)
+    arrays = scene_arrays(room_t)
+    t0 = time.perf_counter()
+    path = write_gltf(f"{tmp}/textured_room.gltf", arrays)
+    t1 = time.perf_counter()
+    scene = T.load_scene(path)
+    loaded = scene.flatten(sky, device="cuda")
+    torch.cuda.synchronize()
+    procedural = dataclasses.replace(room_t, tex_atlas=torch.from_numpy(
+        quantised_atlas(arrays["tex_atlas"])))
+    check_loaded(procedural, loaded, "textured room")
+    log(f"glTF textured room: written in {(t1 - t0) * 1e3:.1f} ms "
+        f"({os.path.getsize(path)} B, the atlas as {len(arrays['tex_atlas'])} "
+        f"8-bit PNG), loaded and flattened onto the card in "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms; equal to the procedural "
+        f"room with the quantised atlas")
+    zero_launches()
+    t0 = time.perf_counter()
+    img = T.render(scene, cfg, key, env_radiance=sky)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    add_launches(total, launches)
+    if launches["mega_save_hits"] != chunks or launches["mega"]:
+        raise AssertionError(f"the loaded textured room's frame must run the "
+                             f"save_hits instance once a chunk: {launches}")
+    want_img = T.Renderer(cfg, device="cuda").render(procedural, key)
+    if not torch.equal(img, want_img):
+        mx, share, mean = compare_images(img, want_img)
+        raise AssertionError(f"loaded and procedural textured frames differ: "
+                             f"max {mx}, share {share}, mean {mean}")
+    log(f"one-shot render of the loaded textured room: {dt * 1e3:.1f} ms "
+        f"(flatten included); launches {launches}; equal bit for bit to the "
+        f"procedural room's frame")
+    out["loaded textured room"] = (dt * 1e3, 0.0, launches)
+    return out, path, total
+
+
+def progressive_phase(T, room_t, cfg, key, room_frame, tmp):
+    """Phase 26: Renderer.progressive. The textured room at cfg's shape as
+    2 steps of cfg.spp / 2 samples, straight through and with save / load
+    into a new accumulator between them: bit-equal radiance sums, the
+    image within 1e-5 of phase 23's Renderer.render frame. Then the
+    1920x1080 @64 spp d8 textured forward (132,710,400 paths) as 4 steps
+    of 16 samples: ms a step, the total, rays/s, peak memory; finite and
+    non-negative. Returns (its step times in ms, total ms, peak GiB, the
+    launches)."""
+    from tinypathtracer_tpu_torch.render import film
+
+    half = cfg.spp // 2
+    r = T.Renderer(cfg, device="cuda")
+    total = {}
+    zero_launches()
+    straight = r.progressive()
+    for _ in range(2):
+        straight.step(room_t, key, half)
+    part = r.progressive()
+    part.step(room_t, key, half)
+    path = f"{tmp}/progressive.npz"
+    part.save(path)
+    resumed = r.progressive()
+    resumed.load(path)
+    resumed.step(room_t, key, half)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    add_launches(total, launches)
+    if not torch.equal(resumed.radiance_sum, straight.radiance_sum):
+        raise AssertionError("the resumed progressive render differs from "
+                             "the uninterrupted one")
+    img = film.to_image(resumed.radiance_sum, resumed.samples_done)
+    mx, share, mean = compare_images(img, room_frame)
+    log(f"progressive textured room, 2 x {half} spp with save / load: equal "
+        f"bit for bit to 2 uninterrupted steps; against Renderer.render: max "
+        f"abs diff {mx:.3e}; launches {launches}")
+    if mx > 1e-5 or launches["mega_save_hits"] != 4 * chunks_of(cfg, half):
+        raise AssertionError(f"progressive room: max diff {mx}, launches "
+                             f"{launches}")
+    big = T.RenderConfig(width=1920, height=1080, spp=64, max_depth=8)
+    rb = T.Renderer(big, device="cuda")
+    prog = rb.progressive()
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        prog.step(room_t, key, 16)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    add_launches(total, launches)
+    img = prog.image()
+    check_image(img, big, "the 1920x1080 @64 spp textured frame")
+    n_rays = big.n_pixels * big.spp
+    log(f"1920x1080 @64spp d8 textured forward, 4 progressive steps of 16 "
+        f"spp: {', '.join(f'{t:.1f}' for t in steps)} ms, total "
+        f"{sum(steps):.1f} ms, {n_rays / (sum(steps) / 1e3):,.0f} rays/s "
+        f"({n_rays} paths), peak memory {peak:.2f} GiB, image mean "
+        f"{float(img.mean()):.5f}; launches {launches}")
+    want = 4 * chunks_of(big, 16)
+    if launches["mega_save_hits"] != want or launches["mega"] or \
+            launches["dense"]:
+        raise AssertionError(f"the 1920x1080 frame must launch the save_hits "
+                             f"instance {want} times and nothing else: "
+                             f"{launches}")
+    return steps, sum(steps), peak, total
+
+
+class twin_kernels:
+    """Context: kernels A and C replaced, in ops/dense and ops/packet, by
+    their plain twins on the same (card) tensors: the twin route of a
+    comparison. The twins count no launch."""
+
+    def __enter__(self):
+        from tinypathtracer_tpu_torch.ops import dense, packet
+
+        self.real = dense.dense_hit, packet.packet_hit
+        dense.dense_hit = lambda rays, woop, mask=None: dense._dense_torch(
+            rays, woop.planes, woop.sp_boxes if dense.gated(woop) else None,
+            mask)
+        packet.packet_hit = packet._packet_torch
+        return self
+
+    def __exit__(self, *exc):
+        from tinypathtracer_tpu_torch.ops import dense, packet
+
+        dense.dense_hit, packet.packet_hit = self.real
+        return False
+
+
+def aov_phase(T, scenes, cfg, key, dev):
+    """Phase 27: the three AOVs through render_aov at cfg's shape on the
+    textured room (kernel A) and the textured large scene (kernel C),
+    launch counters zeroed before each and read after: one launch a
+    chunk of the renderer's own hit kernel, no other; values in [0, 1],
+    every pixel hit (both rooms are closed). Then each at 64x64 @2 spp
+    against the same AOV through the twin route (twin_kernels), exactly.
+    Returns ({(scene, kind): ms}, the launches)."""
+    small = T.RenderConfig(width=64, height=64, spp=2, max_depth=8)
+    out, total = {}, {}
+    for name, scene, kernel in (("textured room", scenes[0], "dense"),
+                                ("textured large scene", scenes[1],
+                                 "packet")):
+        flat = scene.to(dev)
+        for kind in T.AOV_KINDS:
+            zero_launches()
+            t0 = time.perf_counter()
+            img = T.render_aov(flat, cfg, key, kind, device=dev)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            add_launches(total, launches)
+            other = "packet" if kernel == "dense" else "dense"
+            if not (launches[kernel] == chunks_of(cfg)
+                    and launches[other] == 0 and launches["mega"] == 0
+                    and launches["mega_save_hits"] == 0):
+                raise AssertionError(f"{name} {kind} AOV launched {launches}")
+            if not (img.shape == (cfg.height, cfg.width, 3)
+                    and float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+                    and bool((img.sum(-1) > 0).all())):
+                raise AssertionError(f"{name} {kind} AOV: values out of [0, "
+                                     f"1] or a pixel that hit nothing")
+            got = T.render_aov(flat, small, key, kind, device=dev)
+            with twin_kernels():
+                want = T.render_aov(flat, small, key, kind, device=dev)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {kind} AOV differs from the "
+                                     f"twin route's at 64x64")
+            log(f"AOV {kind}, {name}: {cfg.width}x{cfg.height} @{cfg.spp}spp "
+                f"{ms:.1f} ms, mean {float(img.mean()):.5f}; launches "
+                f"{launches}; equal to the twin route's at 64x64 @2spp")
+            out[(name, kind)] = ms
+    return out, total
+
+
+def cli_phase(T, path, sky, cfg, tmp):
+    """Phase 28: `python -m tinypathtracer_tpu_torch.tools.render_cli` as
+    a subprocess on the card, on the written textured room, with --stats
+    and once with --aov normal: each PNG equal byte for byte to the
+    in-process one-shot render (or render_aov, flipped to top-down rows)
+    written by film.write_png. Returns the beauty run's stats."""
+    from tinypathtracer_tpu_torch.render import film
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = [sys.executable, "-m", "tinypathtracer_tpu_torch.tools.render_cli",
+            "--scene", path, "--width", str(cfg.width), "--height",
+            str(cfg.height), "--spp", str(cfg.spp), "--depth",
+            str(cfg.max_depth), "--seed", "0"]
+    key = T.prng_key(0)
+    flat = T.load_scene(path).flatten(sky, device="cuda")
+    refs = {"beauty": T.render(T.load_scene(path), cfg, key, env_radiance=sky),
+            "normal": T.render_aov(flat, cfg, key, "normal").flip(0)}
+    stats = None
+    for name, extra in (("beauty", ["--stats"]), ("normal", ["--aov",
+                                                             "normal"])):
+        out = f"{tmp}/cli_{name}.png"
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + ["--out", out] + extra, cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"render_cli {name} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        ref = f"{tmp}/ref_{name}.png"
+        film.write_png(ref, refs[name])
+        with open(out, "rb") as a, open(ref, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"render_cli's {name} PNG differs from "
+                                     f"the in-process one")
+        if name == "beauty":
+            stats = json.loads(proc.stderr.strip().splitlines()[-1])
+        log(f"render_cli {name} (subprocess, {' '.join(extra)}): {dt:.1f} s "
+            f"wall; PNG equal byte for byte to the in-process one"
+            + (f"; stats {json.dumps(stats)}" if name == "beauty" else ""))
+    return stats
 
 
 def main():
@@ -1978,7 +2503,8 @@ def main():
     phase_done("phase 17")
     physical, frames = physical_frames(T, scenes, sky, key, pcfg)
     phase_done("phase 18")
-    err_a_nee, err_c_nee = nee_vs_twins(T, scenes, sky, key, pcfg, dev)
+    err_a_nee, err_c_nee, nee_bounds = nee_vs_twins(T, scenes, sky, key,
+                                                    pcfg, dev)
     err_a, err_c = max(err_a, err_a_nee), max(err_c, err_c_nee)
     phase_done("phase 19")
     physical_large_on_a(T, scenes["large scene"], sky, key, pcfg,
@@ -1991,11 +2517,45 @@ def main():
                                                        pcfg, dev)
     phase_done("phase 22")
 
+    # ---- 23-28. textures, progressive rendering, AOVs, the CLI -----------
+    room_t = T.sphere_grid_scene(*ROOM, env_radiance=sky, textured=True)
+    large_t = T.sphere_grid_scene(*LARGE, env_radiance=sky, textured=True)
+    textured = {}                 # the launches of phases 23-27's main paths
+    tex_frames, tex_frame, launched, (e_b, e_h) = textured_room_frames(
+        T, room_t, cfg, key, dev)
+    err_b, err_h = max(err_b, e_b), max(err_h, e_h)
+    add_launches(textured, launched)
+    phase_done("phase 23")
+    tex_step = textured_train(T, room_t, cfg, small, dev)
+    add_launches(textured, tex_step[2])
+    phase_done("phase 24")
+    with tempfile.TemporaryDirectory() as tmp:
+        tex_other, tex_path, launched = textured_other_scenes(
+            T, sky, key, cfg, room_t, large_t, tmp, dev)
+        add_launches(textured, launched)
+        phase_done("phase 25")
+        big_steps, big_ms, big_peak, launched = progressive_phase(
+            T, room_t, cfg, key, tex_frame, tmp)
+        add_launches(textured, launched)
+        del tex_frame
+        phase_done("phase 26")
+        aov_ms, launched = aov_phase(T, (room_t, large_t), cfg, key, dev)
+        add_launches(textured, launched)
+        phase_done("phase 27")
+        cli_stats = cli_phase(T, tex_path, sky, cfg, tmp)
+        phase_done("phase 28")
+    log(f"launches of the main paths of phases 23-27: {textured}")
+    for kernel in ("dense", "packet", "mega_save_hits"):
+        if not textured.get(kernel):
+            raise AssertionError(f"phases 23-27 never launched {kernel}: "
+                                 f"{textured}")
+
     kernels = [
         {"name": "dense_closest_hit", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/dense.cu",
          "replaces": "tinypathtracer_tpu/ops/dense.py:197",
-         "launches": launches["dense"], "max_abs_err": err_a,
+         "launches": launches["dense"] + textured.get("dense", 0),
+         "max_abs_err": err_a,
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": bounds["dense"][0],
          "bound_by": bounds["dense"][1], "library_ms": None,
          "modular_frame_ms_per_launch": a_launch_ms,
@@ -2003,31 +2563,43 @@ def main():
          "physical_room_ms_per_launch": physical["room"][3],
          "physical_3_lights_launches": physical["room+3 lights"][2],
          "physical_step_launches": step_launches,
+         "textured_launches": textured.get("dense", 0),
+         **{f"physical_{k.replace(' ', '_')}_queries.{f}": v
+            for k, row in nee_bounds["A"].items()
+            for f, v in zip(("queries", "ms", "bound_ms", "bound_by"), row)},
          **{f"{cell}.{k}": dense_lab[cell][k] for cell in lab_dense.CELLS
             for k in ("ms", "tested_bound_ms", "tested_share")}},
         {"name": "mega_trace", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",
-         "launches": launches["mega"], "max_abs_err": err_b,
+         "launches": launches["mega"] + textured.get("mega", 0),
+         "max_abs_err": err_b,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": bounds["mega"][0],
          "bound_by": bounds["mega"][1], "library_ms": None},
         {"name": "mega_trace_save_hits", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",
-         "launches": train_launches["mega_save_hits"], "max_abs_err": err_h,
+         "launches": train_launches["mega_save_hits"]
+         + textured.get("mega_save_hits", 0), "max_abs_err": err_h,
          "ms": h_ms, "plain_ms": h_plain,
          "bound_ms": bounds["mega_save_hits"][0],
-         "bound_by": bounds["mega_save_hits"][1], "library_ms": None},
+         "bound_by": bounds["mega_save_hits"][1], "library_ms": None,
+         "textured_launches": textured.get("mega_save_hits", 0)},
         {"name": "packet_closest_hit", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/packet.cu",
          "replaces": "tinypathtracer_tpu/ops/packet.py:158",
-         "launches": packet_launches["packet"], "max_abs_err": err_c,
+         "launches": packet_launches["packet"] + textured.get("packet", 0),
+         "max_abs_err": err_c,
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": bounds["packet"][0],
          "bound_by": bounds["packet"][1], "library_ms": None,
          "first_bounce_ms": fb_ms,
          "first_bounce_bound_ms": bounds["packet_first_bounce"][0],
          "physical_large_launches": physical["large scene"][2],
-         "physical_large_ms_per_launch": physical["large scene"][3]},
+         "physical_large_ms_per_launch": physical["large scene"][3],
+         "textured_launches": textured.get("packet", 0),
+         **{f"physical_{k.replace(' ', '_')}_queries.{f}": v
+            for k, row in nee_bounds["C"].items()
+            for f, v in zip(("queries", "ms", "bound_ms", "bound_by"), row)}},
     ]
     for name, src, line, launched in (
             ("mxu", "lab4.cu", "tools/lab4.py:60", lab4_launches["mxu"]),
@@ -2047,6 +2619,10 @@ def main():
     log(f"physical frames (best, spread, launches of 3 frames, ms a launch): "
         f"{physical}; physical room step {step_ms:.1f} ms, "
         f"{step_peak:.2f} GiB")
+    log(f"textured: room frames {tex_frames}; step {tex_step[0]:.1f} ms, "
+        f"{tex_step[1]:.2f} GiB; other scenes {tex_other}; 1920x1080 @64spp "
+        f"steps {big_steps} ms, total {big_ms:.1f} ms, {big_peak:.2f} GiB; "
+        f"AOVs {aov_ms}; CLI stats {cli_stats}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,16 @@ Both packages render the same procedural room: the JAX package builds
 it, and the port receives its fields as numpy arrays through
 `FlatScene.from_numpy`. `write_room` writes the room as a glTF file
 (chip_smoke.write_gltf, the writer the smoke run uses) for both
-packages' `load_scene`. `train_setup` does the same for the training
+packages' `load_scene`; `write_textured_quad` writes a quad with a
+base-color texture as a hand-built document (the JAX package's
+tests/test_textured_scene.py builds its quad the same way). `train_setup` does the same for the training
 state: JAX `Params` and an optax Adam state, and their port twins.
 """
 
+import base64
 import dataclasses
+import io
+import json
 import os
 
 import numpy as np
@@ -90,3 +95,69 @@ def train_setup(flat, seed=0, steps=2, device="cpu"):
         _, state = opt.update(grads, state, jparams)
     params = Params.from_numpy(to_numpy(jparams), device)
     return jparams, state, params, adam_state_from_optax(state, params)
+
+
+# the quad's texture: 8x8 seeded colours (a 4-level mip chain)
+QUAD_TEXTURE = np.random.default_rng(11).random((8, 8, 3)).astype(np.float32)
+
+
+def _png_data_uri(img) -> str:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray((img * 255).astype(np.uint8)).save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+
+
+def write_textured_quad(directory, texture=QUAD_TEXTURE) -> str:
+    """A quad spanning [-1, 1]^2 at z = -2 facing the camera, its uvs
+    covering the texture twice (wrap addressing), the texture a PNG data
+    URI on a diffuse white material; returns the .gltf path."""
+    pos = np.array([[-1, -1, -2], [1, -1, -2], [1, 1, -2], [-1, 1, -2]],
+                   np.float32)
+    nrm = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+    # glTF's uv origin is top-left: v = 0 at the top of the texture
+    uv = np.array([[0, 2], [2, 2], [2, 0], [0, 0]], np.float32)
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint16)
+    blob = pos.tobytes() + nrm.tobytes() + uv.tobytes() + idx.tobytes()
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"uri": "data:application/octet-stream;base64,"
+                            + base64.b64encode(blob).decode(),
+                     "byteLength": len(blob)}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": 48},
+            {"buffer": 0, "byteOffset": 48, "byteLength": 48},
+            {"buffer": 0, "byteOffset": 96, "byteLength": 32},
+            {"buffer": 0, "byteOffset": 128, "byteLength": 12}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 4,
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": 4,
+             "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": 4,
+             "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5123, "count": 6,
+             "type": "SCALAR"}],
+        "images": [{"uri": _png_data_uri(texture)}],
+        "textures": [{"source": 0}],
+        "materials": [{"name": "textured",
+                       "pbrMetallicRoughness": {
+                           "baseColorFactor": [1, 1, 1, 1],
+                           "baseColorTexture": {"index": 0},
+                           "metallicFactor": 0.0}}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+            "indices": 3, "material": 0}]}],
+        "cameras": [{"type": "perspective",
+                     "perspective": {"yfov": 0.9, "aspectRatio": 1.0,
+                                     "znear": 0.01}}],
+        "nodes": [{"mesh": 0}, {"camera": 0}],
+        "scenes": [{"nodes": [0, 1]}],
+        "scene": 0,
+    }
+    path = os.path.join(str(directory), "quad.gltf")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path

@@ -260,6 +260,33 @@ def test_written_room_reads_back_the_procedural_arrays(tmp_path, lights):
         assert torch.equal(getattr(room, name), getattr(loaded, name)), name
 
 
+def test_written_textured_room_reads_back(tmp_path):
+    """write_gltf of a textured room: TEXCOORD_0 on every mesh and the
+    atlas as an 8-bit PNG texture per layer. It loads back to the exact
+    texcoords, the quantised atlas (chip_smoke.quantised_atlas), each
+    face's texture layer, and renders the frame of the procedural room
+    that carries the quantised atlas, bit for bit."""
+    from chip_smoke import quantised_atlas, write_gltf
+
+    room = sphere_grid_scene(1, 6, 12, env_radiance=gradient_sky(*SKY),
+                             textured=True)
+    arrays = {f.name: getattr(room, f.name).numpy()
+              for f in dataclasses.fields(room)}
+    loaded = load_scene(write_gltf(tmp_path / "t.gltf", arrays)).flatten(
+        gradient_sky(*SKY), device="cpu")
+    assert torch.equal(loaded.texcoords, room.texcoords)
+    q = quantised_atlas(arrays["tex_atlas"])
+    assert np.array_equal(loaded.tex_atlas.numpy(), q)
+    assert not np.array_equal(q, arrays["tex_atlas"])
+    assert float(np.abs(q - arrays["tex_atlas"]).max()) <= 0.5 / 255 + 1e-7
+    assert torch.equal(room.mtl_tex_id[room.face_mtl.long()],
+                       loaded.mtl_tex_id[loaded.face_mtl.long()])
+    procedural = dataclasses.replace(room, tex_atlas=torch.from_numpy(q))
+    r = Renderer(RenderConfig(**SIZE), device="cpu")
+    assert torch.equal(r.render(loaded, prng_key(2)),
+                       r.render(procedural, prng_key(2)))
+
+
 @pytest.mark.parametrize("megakernel", [True, False])
 @pytest.mark.parametrize("lights", [False, True])
 def test_loaded_room_reference_frame_is_bit_equal(gltf_files, lights,

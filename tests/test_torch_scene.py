@@ -127,7 +127,12 @@ def test_config_validation():
 
 
 def test_textured_scene_not_ported():
+    """Textured scenes are ported now: TraceData no longer raises on an
+    atlas, it adds the six texcoord rows and the atlas tables (their
+    values are held to JAX's in tests/test_torch_textured.py)."""
     scene = dataclasses.replace(port_scene(jax_scene()),
                                 tex_atlas=torch.ones((1, 4, 4, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TraceData.from_scene(scene)
+    data = TraceData.from_scene(scene)
+    assert data.textured
+    assert data.shade_packT.shape == (21, scene.indices.shape[0])
+    assert data.atlas_r.shape == (16,) and data.atlas_mips_r.shape == (21,)

@@ -17,6 +17,11 @@ Public API:
     sphere_grid_scene(...)            -> procedural room scene
     prng_key(seed)                    -> frame key (== jax.random.PRNGKey)
     Renderer(cfg, device).render(scene, key) -> image [H, W, 3]
+    Renderer(cfg, device).progressive()   -> resumable ProgressiveRender
+    render_aov(scene, cfg, key, kind, device="cuda") -> an AOV
+    save_pytree / load_pytree         -> Params / AdamState checkpoints
+    StageTimer, RenderStats, timed_render, trace_profile -> metrics
+    python -m tinypathtracer_tpu_torch.tools.render_cli -> the CLI
 """
 
 from tinypathtracer_tpu_torch.config import RenderConfig
@@ -24,9 +29,18 @@ from tinypathtracer_tpu_torch.models.camera import Camera
 from tinypathtracer_tpu_torch.models.procedural import sphere_grid_scene
 from tinypathtracer_tpu_torch.models.scene import FlatScene, Scene, load_scene
 from tinypathtracer_tpu_torch.ops.sampling import prng_key
+from tinypathtracer_tpu_torch.render.aov import AOV_KINDS, render_aov
 from tinypathtracer_tpu_torch.render.renderer import (Renderer, render,
                                                       render_frame)
+from tinypathtracer_tpu_torch.utils.checkpoint import (ProgressiveRender,
+                                                       load_pytree,
+                                                       save_pytree)
+from tinypathtracer_tpu_torch.utils.metrics import (RenderStats, StageTimer,
+                                                    timed_render,
+                                                    trace_profile)
 
 __all__ = ["RenderConfig", "Scene", "FlatScene", "load_scene", "Camera",
            "sphere_grid_scene", "prng_key", "Renderer", "render",
-           "render_frame"]
+           "render_frame", "AOV_KINDS", "render_aov", "ProgressiveRender",
+           "save_pytree", "load_pytree", "RenderStats", "StageTimer",
+           "timed_render", "trace_profile"]

@@ -1,10 +1,10 @@
 """Render configuration (port of `tinypathtracer_tpu/config.py`).
 
-Only the knobs of the ported slices exist here. The TPU tuning fields
-of the JAX config (megakernel block width and chunk size, slab gates,
-the packet traversal's `packet_*` knobs, pixel tiling) and its `TPT_*`
+The TPU tuning fields of the JAX config (megakernel block width and
+chunk size, slab gates, the packet traversal's `packet_*` knobs, the
+deprecated pixel tiling, `mega_bwd`, `remat_chunks`) and its `TPT_*`
 environment reads have no counterpart: the CUDA kernels take no tuning
-knobs yet.
+knobs.
 """
 
 from __future__ import annotations
@@ -59,10 +59,17 @@ class RenderConfig:
     # (path_tracer.cu:387-401). Off = BSDF sampling finds emitters by
     # luck.
     area_nee: bool = True
+    # Base-color texture filtering: "point" fetches the nearest level-0
+    # texel (the reference's cudaFilterModePoint, the parity default);
+    # "bilinear" picks a mip level per lane from the hit distance and
+    # the pixel's ray spread and filters bilinearly in the atlas mip
+    # chain. Texel gradients flow through either.
+    tex_filter: str = "point"
     # Trace the whole reference-mode bounce loop in one kernel launch
     # per chunk (ops/mega.py) when the scene qualifies (<= 8192 padded
-    # faces, <= 6 delta lights). False forces the modular per-bounce
-    # path on the dense closest-hit kernel.
+    # faces, <= 6 delta lights; on a textured scene the kernel records
+    # the hits and the shading replays on them). False forces the
+    # modular per-bounce path on the dense closest-hit kernel.
     megakernel: bool = True
 
     def __post_init__(self):
@@ -77,6 +84,8 @@ class RenderConfig:
             raise ValueError(f"unknown intersector {self.intersector!r}")
         if self.bvh_source not in ("device", "host"):
             raise ValueError(f"unknown bvh_source {self.bvh_source!r}")
+        if self.tex_filter not in ("point", "bilinear"):
+            raise ValueError(f"unknown tex_filter {self.tex_filter!r}")
 
     @property
     def n_pixels(self) -> int:

@@ -15,9 +15,8 @@ loss. The JAX package's functional signature is kept: the step takes
 and returns (params, opt_state), with the optimizer state held as
 `AdamState`, the counterpart of optax's ScaleByAdamState.
 
-Not ported yet: the texture atlas leaf (`Params.tex_atlas`, with the
-ROADMAP 'Textures' item) and `make_sharded_train_step` (ROADMAP
-'torch.distributed sharding').
+Not ported yet: `make_sharded_train_step` (ROADMAP item 1.6,
+torch.distributed sharding).
 """
 
 from __future__ import annotations
@@ -38,14 +37,15 @@ ADAM_EPS = 1e-8
 
 @dataclasses.dataclass
 class Params:
-    """Differentiable scene parameters (gradient leaves). The JAX
-    package's `tex_atlas` leaf waits for the Textures port item."""
+    """Differentiable scene parameters (gradient leaves), in the JAX
+    package's field order (a checkpoint's leaf_0..5)."""
 
     mtl_base_color: torch.Tensor   # [M, 3]
     mtl_emission: torch.Tensor     # [M]
     light_intensity: torch.Tensor  # [L]
     env_radiance: torch.Tensor     # [He, We, 3]
     cam_to_world: torch.Tensor     # [4, 4]
+    tex_atlas: torch.Tensor        # [T, Ht, Wt, 3] base-color texels
 
     @staticmethod
     def from_scene(scene: FlatScene) -> "Params":
@@ -54,8 +54,8 @@ class Params:
 
     @staticmethod
     def from_numpy(arrays, device) -> "Params":
-        """From a JAX Params, given as a dict of numpy arrays by field
-        name (its other leaves are ignored)."""
+        """From a JAX Params (or its optimizer moments), given as a dict
+        of numpy arrays by field name."""
         return Params(**{
             f.name: torch.from_numpy(np.array(arrays[f.name], np.float32,
                                               order="C")).to(device)

@@ -2,8 +2,8 @@
 
 `sphere_grid_scene` builds a Cornell-style room holding a grid of
 UV-spheres, with numpy on the host exactly as the JAX package does
-(the same seeded jitter), so both packages get identical arrays.
-Textured variants are not ported yet.
+(the same seeded jitter), so both packages get identical arrays,
+textured (a 64x64 checker atlas on the diffuse materials) or not.
 """
 
 from __future__ import annotations
@@ -44,19 +44,25 @@ def uv_sphere(center, radius, n_lat, n_lon):
 
 
 def sphere_grid_scene(grid=4, n_lat=16, n_lon=32, env_radiance=None,
-                      device="cpu") -> FlatScene:
+                      device="cpu", textured=False) -> FlatScene:
     """A 10x10x10 room of grid^3 spheres; ~2*grid^3*n_lat*n_lon + 12
     triangles. Materials cycle diffuse/metal by a seeded draw; one
     emissive panel under the ceiling lights the room. env_radiance:
-    optional [H, W, 3] array or tensor (default a dim constant sky)."""
+    optional [H, W, 3] array or tensor (default a dim constant sky).
+
+    textured=True gives the diffuse materials 0-2 a 64x64 checker atlas
+    with real texcoords (the quads tile it 4x, the spheres use their
+    lat/lon parametrization); the metal and emissive ones stay
+    untextured."""
     rng = np.random.default_rng(7)
-    verts, norms, faces, face_mtl, vert_obj = [], [], [], [], []
+    verts, norms, uvs, faces, face_mtl, vert_obj = [], [], [], [], [], []
     v_off = 0
 
-    def add(v, n, f, mtl):
+    def add(v, n, f, mtl, uv):
         nonlocal v_off
         verts.append(v)
         norms.append(n)
+        uvs.append(np.asarray(uv, np.float32))
         faces.append(f + v_off)
         face_mtl.append(np.full(len(f), mtl, np.int32))
         vert_obj.append(np.full(len(v), 0, np.int32))
@@ -65,7 +71,8 @@ def sphere_grid_scene(grid=4, n_lat=16, n_lon=32, env_radiance=None,
     def quad(p0, p1, p2, p3, n, mtl):
         v = np.asarray([p0, p1, p2, p3], np.float32)
         nn = np.tile(np.asarray(n, np.float32), (4, 1))
-        add(v, nn, np.asarray([[0, 1, 2], [0, 2, 3]], np.int64), mtl)
+        add(v, nn, np.asarray([[0, 1, 2], [0, 2, 3]], np.int64), mtl,
+            [[0, 0], [4, 0], [4, 4], [0, 4]])
 
     s = 5.0
     quad([-s, -s, -s], [s, -s, -s], [s, -s, s], [-s, -s, s], [0, 1, 0], 0)
@@ -87,8 +94,8 @@ def sphere_grid_scene(grid=4, n_lat=16, n_lon=32, env_radiance=None,
                 c = (base + ix * pitch + rng.uniform(-0.1, 0.1) * pitch,
                      base + iy * pitch + rng.uniform(-0.1, 0.1) * pitch,
                      base + iz * pitch + rng.uniform(-0.1, 0.1) * pitch)
-                v, n, f, _uv = uv_sphere(c, r, n_lat, n_lon)
-                add(v, n, f, int(3 * rng.random() // 1))
+                v, n, f, uv = uv_sphere(c, r, n_lat, n_lon)
+                add(v, n, f, int(3 * rng.random() // 1), uv)
 
     v = np.concatenate(verts)
     if env_radiance is None:
@@ -100,9 +107,19 @@ def sphere_grid_scene(grid=4, n_lat=16, n_lon=32, env_radiance=None,
     c2w[0, 0] = -1.0     # glTF cameras look down -Z: turn to face +z
     c2w[2, 2] = -1.0
     n_mtl = 5
+    if textured:
+        yy, xx = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+        check = ((xx // 8 + yy // 8) % 2).astype(np.float32)
+        atlas = np.stack([0.25 + 0.75 * check, np.full_like(check, 0.6),
+                          1.0 - 0.75 * check], axis=-1)[None]
+        uv = np.concatenate(uvs)
+        tex_ids = [0, 0, 0, -1, -1]
+    else:
+        atlas = np.ones((1, 1, 1, 3), np.float32)
+        uv = np.zeros((len(v), 2), np.float32)
+        tex_ids = [-1] * n_mtl
     arrays = dict(
-        vertices=v, normals=np.concatenate(norms),
-        texcoords=np.zeros((len(v), 2)),
+        vertices=v, normals=np.concatenate(norms), texcoords=uv,
         indices=np.concatenate(faces),
         vert_mats=np.eye(4)[None], normal_mats=np.eye(4)[None],
         obj_face_begin=[0], obj_mtl_idx=[0],
@@ -118,5 +135,5 @@ def sphere_grid_scene(grid=4, n_lat=16, n_lon=32, env_radiance=None,
         light_inv_cone=np.zeros(0),
         env_radiance=np.asarray(env_radiance),
         cam_to_world=c2w, cam_yfov=1.1, cam_aspect=1.0, cam_znear=0.01,
-        tex_atlas=np.ones((1, 1, 1, 3)), mtl_tex_id=[-1] * n_mtl)
+        tex_atlas=atlas, mtl_tex_id=tex_ids)
     return FlatScene.from_numpy(arrays, device)

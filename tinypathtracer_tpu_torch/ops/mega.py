@@ -33,8 +33,14 @@ in the backward pass. Each chunk of rays is its own node, so the replay
 graph of one chunk at a time is alive during `backward()`.
 
 Scope (`mega_available`): reference mode, <= 8192 padded faces, <= 6
-delta lights. The textured fast path and the JAX package's "replay"
-backward are not ported.
+delta lights. A textured scene runs the kernel too: texels modulate the
+base color only, never a direction, a hit or a termination, so the
+paths the kernel traces are the textured paths. `trace_paths_mega` runs
+the save_hits instance hits-only, drops its radiance and returns the
+shading replay on its hits (`trace_paths(stored_hits=...)`), which
+applies the textures and is differentiable, texels included, with no
+autograd.Function and no intersection in the backward pass. The JAX
+package's "replay" backward is not ported.
 """
 
 from __future__ import annotations
@@ -58,8 +64,8 @@ from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
 MEGA_MAX_FACES = 8192
 MAX_LIGHTS = 6
 # shadeT row map (rows of the [32, Fp] fused table): rows 12-26 are the
-# 15 shade_packT rows (corner normals, base color, emission, eta,
-# metallic)
+# first 15 shade_packT rows (corner normals, base color, emission, eta,
+# metallic); a textured scene's texcoord rows 15-20 stay out
 _ROW_NRM = 12
 _ROW_EM = 24
 _ROW_METAL = 26
@@ -80,7 +86,8 @@ def _scene_blocks(data: TraceData, woop: WoopTris):
 
 def mega_available(data: TraceData, cfg, woop: WoopTris) -> bool:
     """Static scope check: reference mode, few enough delta lights, and
-    a scene small enough for the megakernel (<= 8192 padded faces)."""
+    a scene small enough for the megakernel (<= 8192 padded faces),
+    textured or not."""
     return (cfg.mode == "reference" and data.n_lights <= MAX_LIGHTS
             and woop.n_padded <= MEGA_MAX_FACES)
 
@@ -437,7 +444,18 @@ def trace_paths_mega(data: TraceData, cfg, woop: WoopTris, origins, dirs,
     key to `render.integrator.trace_paths` on the dense intersector.
     Differentiable: when autograd records and an input needs a gradient,
     the forward runs the save_hits instance and the backward replays the
-    shading on its residuals (`_MegaStored`)."""
+    shading on its residuals (`_MegaStored`). On a textured scene the
+    kernel only records the hits: the radiance is the shading replay on
+    them, under autograd as it stands."""
+    if data.textured:
+        with torch.no_grad():
+            ops = mega_operands(data, cfg, woop, origins, dirs, lane_keys)
+            _, hits = mega_trace(*ops, depth=cfg.max_depth,
+                                 n_lights=data.n_lights, save_hits=True)
+        return trace_paths(data, cfg, None, origins, dirs, None,
+                           stored_hits=unpack_hits(hits, woop.perm,
+                                                   cfg.max_depth),
+                           uniforms=ops[1])
     fields = [getattr(data, name) for name in _DATA_FIELDS]
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in [origins, dirs] + fields):

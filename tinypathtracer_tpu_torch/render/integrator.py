@@ -37,7 +37,15 @@ recomputes (t, u, v) with Moller-Trumbore. Each `lax.stop_gradient` of
 the JAX integrator is a `.detach()` here, in the same place.
 `trace_paths(..., stored_hits=...)` replays the reference-mode shading
 alone on hits recorded by the megakernel (the backward pass of
-ops/mega.py); no intersector runs there. Textures are a later port item.
+ops/mega.py); no intersector runs there.
+
+Base-color textures modulate the hit face's base color right after its
+shading row is gathered (`texture_base`), before the split between the
+estimators: the texcoords are interpolated under `detach()`, then a
+point fetch with wrap addressing (cfg.tex_filter "point", the
+reference's) or a bilinear fetch from the atlas mip chain at a level
+picked from the hit distance and the pixel's ray spread ("bilinear").
+Texel gradients flow through the gathers.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ from tinypathtracer_tpu_torch.models.envlight import (EnvSamplingTables,
                                                       build_env_tables,
                                                       env_lookup, sample_env_u)
 from tinypathtracer_tpu_torch.models.scene import FlatScene
+from tinypathtracer_tpu_torch.models.texture import (build_atlas_mips,
+                                                     mip_level_shapes,
+                                                     wrap_bilinear, wrap_point)
 from tinypathtracer_tpu_torch.ops import shading_c
 from tinypathtracer_tpu_torch.ops.lights import (lights_block,
                                                  sample_delta_light)
@@ -59,16 +70,18 @@ from tinypathtracer_tpu_torch.ops.sampling import (fold_all, lane_uniform,
                                                    triangle_uniform_u)
 from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, dot_c
 from tinypathtracer_tpu_torch.ops.traverse import _ray_tri_single
-from tinypathtracer_tpu_torch.utils.math3d import sqrt, vcross, vdot, xla_cumsum
+from tinypathtracer_tpu_torch.utils.math3d import (f32_reciprocal, fma, sqrt,
+                                                   vcross, vdot, xla_cumsum)
 
 
 @dataclasses.dataclass
 class TraceData:
-    """World-space geometry and shading tables of one frame (the
-    reference-mode fields of the JAX package's TraceData)."""
+    """World-space geometry and shading tables of one frame (the fields
+    of the JAX package's TraceData that the port's bounce loop reads)."""
 
     tri_verts: torch.Tensor      # [F, 3, 3] world-space triangle vertices
-    # [15, F]: corner normals (9), base color (3), emission, eta, metallic
+    # [15, F]: corner normals (9), base color (3), emission, eta,
+    # metallic; a textured scene adds its corner texcoords (6), [21, F]
     shade_packT: torch.Tensor
     face_emission: torch.Tensor  # [F]
     light_kind: torch.Tensor
@@ -92,32 +105,54 @@ class TraceData:
     face_area: torch.Tensor      # [F]
     em_cdf: torch.Tensor         # [F]
     em_power: torch.Tensor       # []
+    # base-color texturing: the atlas layer of each face (-1 = none), the
+    # atlas ([1, 1, 1, 3] = the scene has no textures: the bounce loop
+    # then skips texture work), its channels flattened [T * Ht * Wt], its
+    # mip chain flattened one tensor a channel (models/texture.py
+    # build_atlas_mips), each face's uv density sqrt(uv area / world
+    # area) and 2 tan(yfov / 2), the view's extent a unit of distance:
+    # the last two pick the "bilinear" filter's mip level
+    face_tex: torch.Tensor       # [F] i32
+    tex_atlas: torch.Tensor      # [T, Ht, Wt, 3]
+    atlas_r: torch.Tensor
+    atlas_g: torch.Tensor
+    atlas_b: torch.Tensor
+    atlas_mips_r: torch.Tensor
+    atlas_mips_g: torch.Tensor
+    atlas_mips_b: torch.Tensor
+    face_duv: torch.Tensor       # [F]
+    cam_spread: torch.Tensor     # []
 
     @staticmethod
     def from_scene(scene: FlatScene) -> "TraceData":
-        if scene.has_textures:
-            raise NotImplementedError(
-                "textured scenes are not ported yet (ROADMAP.md, port item "
-                "'Textures')")
         wv, wn = scene.world_geometry()
         idx = scene.indices.long()
         fm = scene.face_mtl.long()
         f = idx.shape[0]
         face_emission = scene.mtl_emission[fm]
-        shade_packT = torch.cat([
-            wn[idx].reshape(f, 9),
-            scene.mtl_base_color[fm],
-            face_emission[:, None],
-            scene.mtl_eta[fm][:, None],
-            scene.mtl_metallic[fm][:, None]], dim=1).T.contiguous()
-        env_flat = scene.env_radiance.reshape(-1, 3)
+        cols = [wn[idx].reshape(f, 9), scene.mtl_base_color[fm],
+                face_emission[:, None], scene.mtl_eta[fm][:, None],
+                scene.mtl_metallic[fm][:, None]]
         tri_verts = wv[idx]
         # 0.5 |e1 x e2|, fused as XLA:CPU fuses the JAX package's
         normal = vcross(tri_verts[:, 1] - tri_verts[:, 0],
                         tri_verts[:, 2] - tri_verts[:, 0])
         face_area = 0.5 * sqrt(vdot(normal, normal))
+        if scene.has_textures:
+            cuv = scene.texcoords[idx]                      # [F, 3, 2]
+            cols.append(cuv.reshape(f, 6))
+            e1u, e2u = cuv[:, 1] - cuv[:, 0], cuv[:, 2] - cuv[:, 0]
+            area_u = 0.5 * torch.abs(fma(e1u[:, 0], e2u[:, 1],
+                                         -(e1u[:, 1] * e2u[:, 0])))
+            face_duv = sqrt(area_u / torch.clamp_min(face_area, 1e-20))
+        else:
+            face_duv = face_area.new_zeros((f,))
+        shade_packT = torch.cat(cols, dim=1).T.contiguous()
+        env_flat = scene.env_radiance.reshape(-1, 3)
         em_cdf = xla_cumsum(face_emission * face_area)
         tables = build_env_tables(scene.env_radiance)
+        atlas = scene.tex_atlas
+        mips = build_atlas_mips(atlas)
         return TraceData(
             tri_verts=tri_verts, shade_packT=shade_packT,
             face_emission=face_emission,
@@ -133,11 +168,23 @@ class TraceData:
             env_marginal_cdf=tables.marginal_cdf,
             env_conditional_cdf=tables.conditional_cdf, env_pdf=tables.pdf,
             face_area=face_area, em_cdf=em_cdf,
-            em_power=em_cdf[-1] if f > 0 else face_area.new_zeros(()))
+            em_power=em_cdf[-1] if f > 0 else face_area.new_zeros(()),
+            face_tex=scene.mtl_tex_id[fm], tex_atlas=atlas,
+            atlas_r=atlas[..., 0].reshape(-1),
+            atlas_g=atlas[..., 1].reshape(-1),
+            atlas_b=atlas[..., 2].reshape(-1),
+            atlas_mips_r=mips[0], atlas_mips_g=mips[1], atlas_mips_b=mips[2],
+            face_duv=face_duv,
+            cam_spread=2.0 * torch.tan(0.5 * scene.cam_yfov))
 
     @property
     def n_lights(self) -> int:
         return self.light_kind.shape[0]
+
+    @property
+    def textured(self) -> bool:
+        """The scene has a texture atlas (not the [1, 1, 1, 3] sentinel)."""
+        return any(n > 1 for n in self.tex_atlas.shape[:3])
 
     @property
     def env_tables(self) -> EnvSamplingTables:
@@ -159,6 +206,59 @@ def env_miss(data: TraceData, cfg: RenderConfig, dx, dy, dz):
     etex = shading_c.env_texel_c(eh, ew, dx, dy, dz)
     return tuple(gather(ch, 0, etex) * cfg.env_scale
                  for ch in (data.env_r, data.env_g, data.env_b))
+
+
+def texture_base(data: TraceData, cfg: RenderConfig, fid, t, bu, bv, row):
+    """The base color (r, g, b) of each lane's hit with its face's
+    texture applied (JAX integrator.py:496-585): row's base color times
+    the texel at the hit's texcoords, on faces with a texture. The
+    texcoords are interpolated from row's rows 15-20 and detached;
+    "point" fetches the level-0 texel with wrap addressing (glTF's uv
+    origin is top-left, so v maps to rows); "bilinear" picks a mip
+    level per lane, texels a pixel ~ t * pixel angle * face uv density
+    * atlas height, and filters in that level of the flat chain.
+    Gradients flow to the texels through the gathers."""
+    fid_c = torch.clamp_min(fid, 0)
+    bw = 1.0 - bu - bv
+    ut = ((bw * row[15] + bu * row[17]) + bv * row[19]).detach()
+    vt = ((bw * row[16] + bu * row[18]) + bv * row[20]).detach()
+    tid = gather(data.face_tex, 0, fid_c)
+    layer = torch.clamp_min(tid, 0).long()
+    n_tex, th, tw = data.tex_atlas.shape[:3]
+    if cfg.tex_filter == "bilinear":
+        shapes = mip_level_shapes(th, tw)
+        offs = [0]
+        for hl_, wl_ in shapes[:-1]:
+            offs.append(offs[-1] + n_tex * hl_ * wl_)
+        table = torch.tensor([[h_ for h_, _ in shapes], [w_ for _, w_ in shapes],
+                              offs], dtype=torch.int64, device=fid.device)
+        duv = gather(data.face_duv, 0, fid_c)
+        px_angle = data.cam_spread * f32_reciprocal(cfg.height)
+        texels_px = t.detach() * px_angle * duv * th
+        lod = torch.floor(torch.log2(torch.clamp_min(texels_px, 1e-20)))
+        lvl = torch.clamp(lod.long(), 0, len(shapes) - 1)
+        hl, wl, off = (gather(r_, 0, lvl) for r_ in table)
+        lay = off + layer * (hl * wl)
+        taps = [(lay + y * wl + x, wt)
+                for y, x, wt in wrap_bilinear(ut, vt, hl, wl)]
+
+        def fetch(ch):
+            out = None
+            for i, wt in taps:
+                term = wt * gather(ch, 0, i)
+                out = term if out is None else out + term
+            return out
+
+        tex = [fetch(ch) for ch in (data.atlas_mips_r, data.atlas_mips_g,
+                                    data.atlas_mips_b)]
+    else:
+        ty, tx = wrap_point(ut, vt, th, tw)
+        flat = layer * (th * tw) + ty * tw + tx
+        tex = [gather(ch, 0, flat) for ch in (data.atlas_r, data.atlas_g,
+                                              data.atlas_b)]
+    textured = tid >= 0
+    return tuple(b * torch.where(textured, tc, 1.0)
+                 for b, tc in zip(row[9:12], tex))
 
 
 Vec = tuple  # three [N] tensors: xyz or rgb
@@ -508,6 +608,9 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                                       torch.where(miss, 1.0, t_k),
                                       uv[:, 0], uv[:, 1])
         row = gather(data.shade_packT, 1, torch.clamp_min(fid, 0))
+        if data.textured:
+            row = (*row[:9], *texture_base(data, cfg, fid, t, bu, bv, row),
+                   *row[12:15])
         if physical:
             st, prev_spec, prev_pdf = physical_bounce(
                 data, cfg, st, prev_spec, prev_pdf, fid, miss, t, bu, bv, row,

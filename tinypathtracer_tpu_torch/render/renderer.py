@@ -132,15 +132,19 @@ def hit_fn(state: PipelineState, cfg: RenderConfig):
                              chunk=min(512, max(8, tri_verts.shape[0])))
 
 
-def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key):
+def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key,
+              spp: Optional[int] = None, sample_offset: int = 0):
     """Camera rays and lane keys of pixel ids pix [P] (row-major
-    y * width + x): one lane per (pixel, sample), pixel-major. The lane
-    key is fold_in(fold_in(key, pixel), sample), so every draw is
-    independent of batch layout. Returns (origins, dirs [P*spp, 3],
-    keys [P*spp, 2])."""
-    lane_pix = pix.repeat_interleave(cfg.spp)
-    lane_s = torch.arange(cfg.spp, dtype=torch.int64,
-                          device=pix.device).repeat(pix.shape[0])
+    y * width + x): one lane per (pixel, sample), pixel-major, for the
+    samples sample_offset .. sample_offset + spp - 1 (spp defaults to
+    cfg.spp). The lane key is fold_in(fold_in(key, pixel), absolute
+    sample), so every draw is independent of batch layout and of how
+    the samples are split into passes. Returns (origins, dirs
+    [P*spp, 3], keys [P*spp, 2])."""
+    spp = cfg.spp if spp is None else spp
+    lane_pix = pix.repeat_interleave(spp)
+    lane_s = sample_offset + torch.arange(
+        spp, dtype=torch.int64, device=pix.device).repeat(pix.shape[0])
     keys = fold_in(fold_lanes(key, lane_pix), lane_s)
     u_cam = lane_uniform(fold_all(keys, _CAM_TAG), 2)
     o, d = raygen.camera_rays_u(
@@ -149,10 +153,14 @@ def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key):
     return o, d, keys
 
 
-def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key):
-    """Radiance SUM over cfg.spp samples for pixel ids pix [P] (row-major
-    y * width + x). Returns [P, 3] float32."""
-    spp = cfg.spp
+def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key,
+                     spp: Optional[int] = None, sample_offset: int = 0):
+    """Radiance SUM over spp samples (cfg.spp by default), the absolute
+    sample indices sample_offset .. sample_offset + spp - 1, for pixel
+    ids pix [P] (row-major y * width + x). Returns [P, 3] float32. The
+    sum form keeps progressive accumulation exact: passes over disjoint
+    sample ranges add up to one pass over their union."""
+    spp = cfg.spp if spp is None else spp
     data = state.data
     use_mega = (cfg.megakernel and state.packet is None
                 and state.woop is not None
@@ -165,7 +173,8 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key):
     for start in range(0, n, px_chunk):
         chunk_pix = pix[start:start + px_chunk]
         m = chunk_pix.shape[0]
-        o, d, keys = lane_rays(state.scene, cfg, chunk_pix, key)
+        o, d, keys = lane_rays(state.scene, cfg, chunk_pix, key, spp,
+                               sample_offset)
         if use_mega:
             rad = trace_paths_mega(data, cfg, state.woop, o, d, keys)
         else:
@@ -175,11 +184,13 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key):
 
 
 def render_frame(scene: FlatScene, cfg: RenderConfig, key,
-                 prebuilt_bvh: Optional[BVH] = None):
-    """Render one frame; returns the radiance SUM image [H, W, 3]."""
+                 prebuilt_bvh: Optional[BVH] = None,
+                 spp: Optional[int] = None, sample_offset: int = 0):
+    """Render one frame; returns the radiance SUM image [H, W, 3] over
+    spp samples from sample_offset on (render_pixel_ids)."""
     state = prepare_state(scene, cfg, prebuilt_bvh)
     pix = torch.arange(cfg.n_pixels, dtype=torch.int64, device=scene.device)
-    return render_pixel_ids(state, cfg, pix, key).reshape(
+    return render_pixel_ids(state, cfg, pix, key, spp, sample_offset).reshape(
         cfg.height, cfg.width, 3)
 
 
@@ -251,6 +262,25 @@ class Renderer:
             rad_sum = render_frame(scene.to(self.device), self.cfg,
                                    key.to(self.device), self._bvh_for(scene))
             return film.to_image(rad_sum, self.cfg.spp)
+
+    def progressive(self, width=None, height=None):
+        """A resumable accumulator bound to this pipeline
+        (utils/checkpoint.ProgressiveRender): each step renders the next
+        samples of the frame by their absolute indices. width and height
+        are accepted as the JAX package's are and ignored: the image is
+        cfg's."""
+        from tinypathtracer_tpu_torch.utils.checkpoint import \
+            ProgressiveRender
+
+        def fn(scene, key, sample_offset, n_samples):
+            with torch.inference_mode():
+                self._validate_stack(scene)
+                return render_frame(scene.to(self.device), self.cfg,
+                                    key.to(self.device), self._bvh_for(scene),
+                                    n_samples, sample_offset)
+
+        return ProgressiveRender(fn, self.cfg.width, self.cfg.height,
+                                 self.device)
 
 
 def render(scene: Scene, cfg: RenderConfig, key, env_radiance=None,
