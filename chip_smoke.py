@@ -82,7 +82,8 @@ non-zero):
      packet traversal) and its train step (one warm-up, 3 timed, peak
      memory), then one profiled run of each with kernel C's total and
      mean per launch; each must launch kernel C and neither kernel A
-     nor B;
+     nor B, the step (each bounce rematerialised: its backward reruns
+     the queries) exactly twice a frame's launches;
  12. the same frame through the modular loop on kernel A, forced through
      the pipeline state: bit-equal to the packet frame;
  13. kernels D (tensor-core transform, both precisions) and E (staged
@@ -136,7 +137,9 @@ non-zero):
      leaves); the frames within 1e-5 but on at most
      PHYSICAL_ORACLE_PIXELS counted pixels;
  22. the physical room's train step at full width: a warm-up with its
-     gradients checked finite, 3 timed steps, peak memory;
+     gradients checked finite, 3 timed steps, peak memory; kernel A
+     exactly 2 x 8 x (3 + L) x 4 launches a step (the rematerialised
+     backward reruns every query), nothing else;
  23. the textured room (sphere_grid_scene(2, 8, 16, textured=True), the
      64x64 checker atlas) at 512x512 @16 spp d8 through Renderer.render,
      launch counters zeroed before each route: the megakernel route
@@ -163,7 +166,25 @@ non-zero):
      each equal at 64x64 to the AOV through the twin route;
  28. `python -m tinypathtracer_tpu_torch.tools.render_cli` as a
      subprocess on the written textured room, with --stats and with
-     --aov normal: each PNG equal byte for byte to the in-process one.
+     --aov normal: each PNG equal byte for byte to the in-process one;
+ 29. the large, physical and textured steps of phases 11, 22 and 24,
+     each bounce rematerialised: best time and peak memory beside their
+     readings before (STEPS_BEFORE_REMAT); each peak must be below;
+ 30. make_sharded_renderer (parallel/) on the room at 512x512 @16 spp
+     d8: a one-rank NCCL group in this process, mesh (1, 1), bit-equal
+     to phase 4's frame; two NCCL ranks on this one card, refused (the
+     error logged); then gloo ranks spawned onto the card: meshes (2, 1)
+     bit-equal to phase 4's frame, (1, 2) and (2, 2) within 1e-5, the
+     large scene at (2, 1) bit-equal to phase 11's; per rank its
+     launches (kernel B only on the room, C only on the large scene),
+     wall time and peak memory (ranks sharing one card measure no
+     scaling);
+ 31. make_sharded_train_step on the room at 512x512 @16 spp d8 (Adam
+     1e-2, zero target) at (2, 1) and (1, 2): loss within 1e-6 and
+     parameters within rtol 1e-5 of phase 7's step, equal on every rank,
+     the save_hits instance once per rank chunk and no other kernel,
+     step time and peak per rank; then render_cli --shard as a one-rank
+     subprocess, its PNG equal byte for byte to phase 28's.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s;
@@ -796,7 +817,10 @@ def check_packet_route(launches, what):
 def large_scene_paths(T, cfg, host_scene, key, dev):
     """Phases 11-12: the large scene's frame and train step through the
     public entry points (packet route), then the frame forced onto
-    kernel A. Returns the frame's launches."""
+    kernel A. The step rematerialises each bounce: its backward reruns
+    the forward's queries, so kernel C runs twice a frame's launches a
+    step. Returns the frame's launches, the frame (on the host), and the
+    step's best ms and peak GiB."""
     from tinypathtracer_tpu_torch.diff import invrender as inv
     from tinypathtracer_tpu_torch.render import film
     from tinypathtracer_tpu_torch.render.renderer import (prepare_state,
@@ -858,6 +882,11 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
         f"{n_rays / best_step:,.0f} fwd+bwd camera rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB; launches in 4 steps {step_launches}")
     check_packet_route(step_launches, "the large-scene train step")
+    want = 4 * 2 * frame_launches["packet"] // 3
+    if step_launches["packet"] != want:
+        raise AssertionError(f"4 rematerialised large-scene steps must "
+                             f"launch kernel C {want} times (twice a "
+                             f"frame's), got {step_launches['packet']}")
     log_kernel_share("large-scene train step",
                      profile_step("large-scene train step", step, params,
                                   state, scene, target, T.prng_key(1, dev)))
@@ -885,7 +914,7 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
                              f"share {share}, mean {mean}")
     log("large scene: the packet frame equals the kernel A frame bit for "
         "bit")
-    return frame_launches
+    return frame_launches, img.cpu(), best_step * 1e3, peak / 2**30
 
 
 def check_mega(got, want, what):
@@ -988,7 +1017,8 @@ def param_names(inv):
 
 def train_phase(T, cfg, host_scene):
     """Phase 7: the full-width train step on the card. Returns the
-    launches of its steps."""
+    launches of its steps and, for phase 31, the first step's (key 1)
+    loss, parameters after it and gradients, on the host."""
     from tinypathtracer_tpu_torch.diff import invrender as inv
     from tinypathtracer_tpu_torch.ops import dense, mega
 
@@ -1008,13 +1038,16 @@ def train_phase(T, cfg, host_scene):
     best, n_steps = float("inf"), 4
     for i in range(n_steps):              # one warm-up step, then 3 timed
         t0 = time.perf_counter()
-        _, new_state, loss = step(params, state, scene, target,
-                                  T.prng_key(i + 1, dev))
+        new_params, new_state, loss = step(params, state, scene, target,
+                                           T.prng_key(i + 1, dev))
         loss = float(loss)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if i:
             best = min(best, dt)
+        else:
+            first = {"loss": loss, "params": [x.cpu() for x in
+                                              new_params.leaves()]}
         log(f"train step {i} ({'warm-up' if i == 0 else 'timed'}): "
             f"{dt * 1e3:.1f} ms, loss {loss:.6f}, Adam step "
             f"{new_state.step}")
@@ -1065,7 +1098,8 @@ def train_phase(T, cfg, host_scene):
         if f in ("mtl_base_color", "mtl_emission", "env_radiance") and \
                 not bool((g != 0).any()):
             raise AssertionError(f"gradient of {f} is zero")
-    return launches
+    first["grads"] = [g.cpu() for g in grads.leaves()]
+    return launches, first
 
 
 def profile_step(what, step, *args):
@@ -1758,8 +1792,10 @@ def physical_oracle(T, scene, sky, dev):
 def physical_train(T, scene, sky, pcfg, dev):
     """Phase 22: the physical room's train step at full width through
     make_train_step: a warm-up (loss_and_grads and the Adam step, with the
-    gradients checked finite), then 3 timed steps; peak memory. Returns
-    (best ms, peak GiB, launches of the 3 steps)."""
+    gradients checked finite), then 3 timed steps; peak memory. Each
+    bounce is rematerialised, so a step launches kernel A twice a
+    frame's max_depth x (3 + L) x chunks. Returns (best ms, peak GiB,
+    launches of the 3 steps)."""
     from tinypathtracer_tpu_torch.diff import invrender as inv
 
     flat = scene.flatten(sky, device=dev)
@@ -1802,8 +1838,12 @@ def physical_train(T, scene, sky, pcfg, dev):
     log(f"physical room train step: best of 3 {best * 1e3:.1f} ms, "
         f"{n_rays / best:,.0f} fwd+bwd camera rays/s, loss {loss:.6f}; peak "
         f"memory {peak:.2f} GiB; launches in 3 steps {launches}")
-    if launches["mega"] or launches["mega_save_hits"] or not launches["dense"]:
-        raise AssertionError(f"the physical step must run kernel A only: "
+    want = 3 * 2 * pcfg.max_depth * (3 + len(scene.doc.lights)) * (
+        -(-n_rays // pcfg.rays_per_dispatch))
+    if (launches["mega"] or launches["mega_save_hits"] or launches["packet"]
+            or launches["dense"] != want):
+        raise AssertionError(f"3 rematerialised physical steps must launch "
+                             f"kernel A {want} times and nothing else: "
                              f"{launches}")
     return best * 1e3, peak, launches["dense"]
 
@@ -2221,6 +2261,292 @@ def cli_phase(T, path, sky, cfg, tmp):
     return stats
 
 
+# ---- phases 29-31: rematerialised steps, torch.distributed ---------------
+
+# the large, physical and textured room steps (phases 11, 22, 24) as
+# this script read them before each bounce was rematerialised: best ms,
+# peak GiB (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5)
+STEPS_BEFORE_REMAT = {"large scene": (1430.5, 13.41),
+                      "physical room": (1287.6, 19.32),
+                      "textured room": (1044.0, 15.87)}
+# seconds a group of rank processes may take
+RANK_TIMEOUT = 300
+
+
+def remat_phase(steps):
+    """Phase 29: the large, physical and textured steps' best times and
+    peaks (phases 11, 22, 24) beside their readings before the
+    rematerialisation; each peak must be below its old one."""
+    for name, (ms, peak) in steps.items():
+        old_ms, old_peak = STEPS_BEFORE_REMAT[name]
+        log(f"{name} step, each bounce rematerialised: {ms:.1f} ms "
+            f"({ms / old_ms:.2f}x the {old_ms:.1f} before), peak "
+            f"{peak:.2f} GiB ({peak / old_peak:.2f}x the {old_peak:.2f})")
+        if not peak < old_peak:
+            raise AssertionError(f"the {name} step's peak did not fall: "
+                                 f"{peak:.2f} GiB")
+
+
+def spawn_ranks(fn, world, tmp, *args):
+    """Run fn(rank, world, tmp, *args) in world processes ("spawn"), all
+    on this card; each saves its result to {tmp}/{fn.__name__}_{rank}.pt.
+    A rank that raises or exits non-zero, or a group that outlasts
+    RANK_TIMEOUT, fails the run; every process is stopped before this
+    returns. Returns the ranks' results in rank order."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, tmp) + args, nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{fn.__name__}: {world} ranks did not "
+                                     f"finish in {RANK_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    return [torch.load(f"{tmp}/{fn.__name__}_{r}.pt") for r in range(world)]
+
+
+def nccl_rank(rank, world, tmp):
+    """A rank of an NCCL group whose ranks share one card: its first
+    collective must be refused. Saves the error text."""
+    import torch.distributed as dist
+
+    from tinypathtracer_tpu_torch.parallel import initialize
+
+    initialize(f"file://{tmp}/nccl_store", world, rank)
+    x = torch.ones(4, device="cuda")
+    error = None
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    except Exception as e:          # the refusal this rank is here to see
+        error = f"{type(e).__name__}: {e}"
+    torch.save({"error": error}, f"{tmp}/nccl_rank_{rank}.pt")
+    sys.stdout.flush()
+    os._exit(0)       # skip tearing down a communicator that never formed
+
+
+def shard_rank(rank, world, tmp, meshes, large_mesh, train_meshes):
+    """A gloo rank on this card (phases 30-31): the room's 512x512 @16 spp
+    d8 frame through make_sharded_renderer on each mesh, the large
+    scene's on large_mesh, and one make_sharded_train_step step (Adam
+    LR, zero target, key 1) on each of train_meshes; each timed after a
+    warm-up, with its launch counters and peak memory."""
+    import torch.distributed as dist
+
+    import tinypathtracer_tpu_torch as T
+    from tinypathtracer_tpu_torch.diff import (AdamState, Params,
+                                               make_sharded_train_step)
+    from tinypathtracer_tpu_torch.models.envlight import gradient_sky
+    from tinypathtracer_tpu_torch.parallel import (initialize, make_mesh,
+                                                   make_sharded_renderer)
+
+    initialize(f"file://{tmp}/gloo_store_{world}", world, rank,
+               backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sky = gradient_sky(64, 128)
+    cfg = T.RenderConfig(width=512, height=512, spp=16, max_depth=8)
+    scenes = {"room": T.sphere_grid_scene(*ROOM, env_radiance=sky),
+              "large scene": T.sphere_grid_scene(*LARGE, env_radiance=sky)}
+    out = {"device": str(dev), "frames": {}, "train": {}}
+
+    def timed(fn):
+        fn()                                      # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (res, (time.perf_counter() - t0) * 1e3, read_launches(),
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    for shape in meshes:
+        render = make_sharded_renderer(cfg, make_mesh(*shape))
+        names = ["room"] + (["large scene"] if shape == large_mesh else [])
+        for name in names:
+            img, ms, launches, peak = timed(
+                lambda: render(scenes[name], T.prng_key(0)))
+            out["frames"][(shape, name)] = (img.cpu(), ms, launches, peak)
+    room = scenes["room"].to(dev)
+    params = Params.from_scene(room)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    for shape in train_meshes:
+        step = make_sharded_train_step(cfg, make_mesh(*shape), LR)
+        (new, state, loss), ms, launches, peak = timed(
+            lambda: step(params, AdamState.init(params), room, target,
+                         T.prng_key(1)))
+        out["train"][shape] = {
+            "loss": float(loss), "params": [x.cpu() for x in new.leaves()],
+            "adam_step": state.step, "ms": ms, "launches": launches,
+            "peak": peak}
+    torch.save(out, f"{tmp}/shard_rank_{rank}.pt")
+    dist.destroy_process_group()
+
+
+def check_rank_launches(launches, kernel, what):
+    """A rank's launches: kernel (a read_launches key) > 0, no other."""
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if not launches[kernel] or others:
+        raise AssertionError(f"{what}: want {kernel} launches only, got "
+                             f"{launches}")
+
+
+def shard_frames_phase(T, cfg, key, host_room, room_frame, large_frame,
+                       tmp):
+    """Phase 30: make_sharded_renderer on the room at 512x512 @16 spp d8
+    (kernel B) and the large scene (kernel C). First in this process, a
+    one-rank NCCL group, mesh (1, 1): bit-equal to phase 4's frame. Then
+    two ranks with NCCL on this one card: refused, the error logged. Then
+    gloo ranks spawned onto this card: meshes (2, 1) bit-equal to phase 4
+    (room) and phase 11 (large scene), (1, 2) and (2, 2) within 1e-5;
+    each rank's launches (B's forward instance only on the room, C only
+    on the large scene), wall time and peak memory. Ranks sharing one
+    card measure no scaling: their times are the card's time shared.
+    Returns (the launches of the sharded frames by kernel, the pair's
+    rank results)."""
+    import torch.distributed as dist
+
+    from tinypathtracer_tpu_torch.parallel import (initialize, make_mesh,
+                                                   make_sharded_renderer)
+
+    initialize()                     # no variable set: one rank, NCCL
+    mesh = make_mesh()
+    zero_launches()
+    t0 = time.perf_counter()
+    img = make_sharded_renderer(cfg, mesh)(host_room, key)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = read_launches()
+    log(f"sharded room frame, 1-rank {dist.get_backend()} group, mesh "
+        f"{tuple(mesh.shape)}: {dt * 1e3:.1f} ms; launches {launched}")
+    dist.destroy_process_group()
+    check_rank_launches(launched, "mega", "the 1-rank sharded frame")
+    if not torch.equal(img.cpu(), room_frame):
+        raise AssertionError("the 1-rank sharded frame differs from phase "
+                             "4's")
+    total = {"mega": launched["mega"]}
+    torch.cuda.empty_cache()
+
+    errors = [r["error"] for r in spawn_ranks(nccl_rank, 2, tmp)]
+    if not all(errors):
+        raise AssertionError(f"NCCL accepted two ranks on one card: "
+                             f"{errors}")
+    log(f"NCCL, two ranks on one card, refused (one rank a card): "
+        f"{errors[0][:600]}")
+
+    pair = spawn_ranks(shard_rank, 2, tmp, [(2, 1), (1, 2)], (2, 1),
+                       [(2, 1), (1, 2)])
+    quad = spawn_ranks(shard_rank, 4, tmp, [(2, 2)], None, [])
+    refs = {"room": room_frame, "large scene": large_frame}
+    for ranks in (pair, quad):
+        for (shape, name), first in ranks[0]["frames"].items():
+            kernel = "mega" if name == "room" else "packet"
+            for rank, r in enumerate(ranks):
+                img, ms, launches, peak = r["frames"][(shape, name)]
+                log(f"sharded {name} frame, mesh {shape}, rank {rank} of "
+                    f"{len(ranks)} on {r['device']} (gloo): {ms:.1f} ms, "
+                    f"peak {peak:.2f} GiB, launches {launches}")
+                check_rank_launches(launches, kernel,
+                                    f"rank {rank}, {name} {shape}")
+                total[kernel] = total.get(kernel, 0) + launches[kernel]
+                if not torch.equal(img, first[0]):
+                    raise AssertionError(f"{name} {shape}: ranks' frames "
+                                         f"differ")
+            diff = float((first[0] - refs[name]).abs().max())
+            exact = torch.equal(first[0], refs[name])
+            log(f"sharded {name} frame, mesh {shape}: max abs diff "
+                f"{diff:.3e} to the one-device frame"
+                + (" (bit-equal)" if exact else ""))
+            if shape[1] == 1 and not exact:
+                raise AssertionError(f"the data-sharded {name} frame "
+                                     f"{shape} is not bit-equal")
+            if diff > 1e-5:
+                raise AssertionError(f"the sharded {name} frame {shape} is "
+                                     f"not within 1e-5")
+    log("ranks sharing one card measure no scaling: each rank's time is "
+        "its share of the one card's")
+    return total, pair
+
+
+def shard_train_phase(pair, reference, path, cfg, tmp):
+    """Phase 31: make_sharded_train_step on the room at 512x512 @16 spp
+    d8 (Adam LR, zero target, key 1) at (2, 1) and (1, 2), from
+    shard_rank's results: the loss within 1e-6 and the parameters within
+    rtol 1e-5 of phase 7's one-device step, equal on every rank; the
+    save_hits instance once per rank chunk, no other kernel; the step's
+    time and peak per rank. Where phase 7's gradient is rounding residue
+    (|g| <= 1e-6 of the largest: the camera's, analytically zero without
+    delta lights), Adam moves a parameter by LR times the residue's sign,
+    so those elements are held to a move of at most LR instead. Then
+    the CLI's --shard as a one-rank subprocess: its PNG equal byte for
+    byte to phase 28's. Returns the save_hits launches."""
+    g_max = max(float(g.abs().max()) for g in reference["grads"]
+                if g.numel())
+    chunks = 2                     # each rank: 2**21 lanes, 2**20 a chunk
+    total = 0
+    for shape in ((2, 1), (1, 2)):
+        first = pair[0]["train"][shape]
+        residue = 0
+        for rank, r in enumerate(pair):
+            t = r["train"][shape]
+            log(f"sharded train step, mesh {shape}, rank {rank}: "
+                f"{t['ms']:.1f} ms, peak {t['peak']:.2f} GiB, loss "
+                f"{t['loss']:.8f} (one device {reference['loss']:.8f}), "
+                f"launches {t['launches']}")
+            check_rank_launches(t["launches"], "mega_save_hits",
+                                f"rank {rank}, step {shape}")
+            if t["launches"]["mega_save_hits"] != chunks:
+                raise AssertionError(f"rank {rank}, step {shape}: want "
+                                     f"{chunks} save_hits launches")
+            total += chunks
+            if not all(torch.equal(a, b) for a, b in zip(t["params"],
+                                                         first["params"])):
+                raise AssertionError(f"step {shape}: parameters differ "
+                                     f"between ranks")
+        if abs(first["loss"] - reference["loss"]) > 1e-6 * reference["loss"]:
+            raise AssertionError(f"step {shape}: the loss is not within 1e-6")
+        for got, want, g in zip(first["params"], reference["params"],
+                                reference["grads"]):
+            off = ~torch.isclose(got, want, rtol=1e-5, atol=1e-7)
+            residue += int(off.sum())
+            live = g.abs() > 1e-6 * g_max
+            if bool((off & (live | ((got - want).abs()
+                                    > 2 * LR * (1 + 1e-6)))).any()):
+                raise AssertionError(f"step {shape}: parameters not within "
+                                     f"rtol 1e-5 of the one-device step")
+        log(f"sharded train step {shape}: loss and parameters agree with "
+            f"phase 7's step; {residue} elements beyond rtol 1e-5, each "
+            f"with a residue gradient (|g| <= 1e-6 of the largest) and a "
+            f"move of at most LR")
+
+    out, ref = f"{tmp}/cli_shard.png", f"{tmp}/ref_beauty.png"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tinypathtracer_tpu_torch.tools.render_cli",
+         "--scene", path, "--width", str(cfg.width), "--height",
+         str(cfg.height), "--spp", str(cfg.spp), "--depth",
+         str(cfg.max_depth), "--seed", "0", "--shard", "--out", out],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"render_cli --shard exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(out, "rb") as a, open(ref, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("render_cli --shard's PNG differs from "
+                                 "phase 28's")
+    log(f"render_cli --shard (one rank, subprocess): "
+        f"{time.perf_counter() - t0:.1f} s wall; PNG equal byte for byte "
+        f"to phase 28's")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2351,6 +2677,7 @@ def main():
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     room_frame = images["megakernel"]
+    room_frame_host = room_frame.cpu()          # for phase 30
     del images, img, big_img, big_mod, r
 
     phase_done("phase 4")
@@ -2431,7 +2758,7 @@ def main():
     phase_done("phase 6")
 
     # ---- 7. the train step at full width -----------------------------------
-    train_launches = train_phase(T, cfg, host_room)
+    train_launches, step_reference = train_phase(T, cfg, host_room)
 
     phase_done("phase 7")
 
@@ -2458,7 +2785,8 @@ def main():
         f"{bounds['packet']}; kernel C {c_ms:.2f} ms camera, {fb_ms:.2f} ms "
         f"first bounce (bound {bounds['packet_first_bounce'][0]:.3f} ms)")
     del pk
-    packet_launches = large_scene_paths(T, cfg, large, key, dev)
+    packet_launches, large_frame, large_ms, large_peak = large_scene_paths(
+        T, cfg, large, key, dev)
 
     phase_done("phases 9-12")
 
@@ -2544,6 +2872,18 @@ def main():
         phase_done("phase 27")
         cli_stats = cli_phase(T, tex_path, sky, cfg, tmp)
         phase_done("phase 28")
+
+        # ---- 29-31. rematerialised steps, torch.distributed -------------
+        remat_phase({"large scene": (large_ms, large_peak),
+                     "physical room": (step_ms, step_peak),
+                     "textured room": tex_step[:2]})
+        phase_done("phase 29")
+        sharded, pair = shard_frames_phase(T, cfg, key, host_room,
+                                           room_frame_host, large_frame, tmp)
+        phase_done("phase 30")
+        sharded["mega_save_hits"] = shard_train_phase(
+            pair, step_reference, tex_path, cfg, tmp)
+        phase_done("phase 31")
     log(f"launches of the main paths of phases 23-27: {textured}")
     for kernel in ("dense", "packet", "mega_save_hits"):
         if not textured.get(kernel):
@@ -2572,15 +2912,17 @@ def main():
         {"name": "mega_trace", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",
-         "launches": launches["mega"] + textured.get("mega", 0),
-         "max_abs_err": err_b,
+         "launches": launches["mega"] + textured.get("mega", 0)
+         + sharded["mega"], "max_abs_err": err_b,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": bounds["mega"][0],
-         "bound_by": bounds["mega"][1], "library_ms": None},
+         "bound_by": bounds["mega"][1], "library_ms": None,
+         "sharded_launches": sharded["mega"]},
         {"name": "mega_trace_save_hits", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",
          "launches": train_launches["mega_save_hits"]
-         + textured.get("mega_save_hits", 0), "max_abs_err": err_h,
+         + textured.get("mega_save_hits", 0) + sharded["mega_save_hits"],
+         "max_abs_err": err_h, "sharded_launches": sharded["mega_save_hits"],
          "ms": h_ms, "plain_ms": h_plain,
          "bound_ms": bounds["mega_save_hits"][0],
          "bound_by": bounds["mega_save_hits"][1], "library_ms": None,
@@ -2588,8 +2930,9 @@ def main():
         {"name": "packet_closest_hit", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/packet.cu",
          "replaces": "tinypathtracer_tpu/ops/packet.py:158",
-         "launches": packet_launches["packet"] + textured.get("packet", 0),
-         "max_abs_err": err_c,
+         "launches": packet_launches["packet"] + textured.get("packet", 0)
+         + sharded["packet"], "max_abs_err": err_c,
+         "sharded_launches": sharded["packet"],
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": bounds["packet"][0],
          "bound_by": bounds["packet"][1], "library_ms": None,
          "first_bounce_ms": fb_ms,

@@ -5,8 +5,9 @@ tests/_torch_scenes.py.
 The CLI's PNG equals the in-process one-shot `render` + `write_png`
 byte for byte (and the AOV's, `render_aov` flipped to top-down rows);
 --stats prints the JSON of a RenderStats with the JAX package's keys;
---shard exits with an error that names the ROADMAP item; the profiler
-context writes a Chrome trace.
+--shard with no COORDINATOR_ADDRESS renders on a one-rank mesh the
+unsharded PNG (tests/test_torch_shard.py runs it on two ranks); the
+profiler context writes a Chrome trace.
 """
 
 import json
@@ -79,13 +80,18 @@ def test_cli_stats_keys_equal_jax(quad, tmp_path, capsys, aov):
     assert stats["rays_per_s"] > 0
 
 
-def test_cli_shard_exits_naming_the_roadmap_item(quad, tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        render_cli.main(["--scene", quad, "--out", str(tmp_path / "x.png"),
-                         "--shard"] + ARGS)
-    assert exc.value.code != 0
-    assert "ROADMAP item 1.6" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "x.png")
+def test_cli_shard_exits_naming_the_roadmap_item(quad, tmp_path, monkeypatch):
+    """--shard in one process: a one-rank gloo group (no variable set),
+    the PNG of the unsharded CLI byte for byte, the group torn down."""
+    import torch.distributed as dist
+
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    out, ref = str(tmp_path / "x.png"), str(tmp_path / "ref.png")
+    render_cli.main(["--scene", quad, "--out", out, "--shard"] + ARGS)
+    assert not dist.is_initialized()
+    render_cli.main(["--scene", quad, "--out", ref] + ARGS)
+    assert _bytes(out) == _bytes(ref)
 
 
 def test_cli_tile_pixels_is_accepted(quad, tmp_path):

@@ -4,11 +4,12 @@ from tinypathtracer_tpu_torch.diff.invrender import (AdamState, Params,
                                                      adam_state_from_optax,
                                                      adam_step,
                                                      apply_params,
+                                                     make_sharded_train_step,
                                                      make_train_step,
                                                      mse_loss,
                                                      project_physical,
                                                      render_mean)
 
 __all__ = ["AdamState", "Params", "adam_state_from_optax", "adam_step",
-           "apply_params", "make_train_step", "mse_loss", "project_physical",
-           "render_mean"]
+           "apply_params", "make_sharded_train_step", "make_train_step",
+           "mse_loss", "project_physical", "render_mean"]

@@ -14,9 +14,9 @@ is one Adam step (`torch.optim.Adam`, optax.adam's defaults) on the MSE
 loss. The JAX package's functional signature is kept: the step takes
 and returns (params, opt_state), with the optimizer state held as
 `AdamState`, the counterpart of optax's ScaleByAdamState.
-
-Not ported yet: `make_sharded_train_step` (ROADMAP item 1.6,
-torch.distributed sharding).
+`make_sharded_train_step` is the same step over a ("data", "sample")
+device mesh (parallel/mesh.py): pixels and samples shard over the
+ranks, the gradient is all-reduced, Adam runs on every rank.
 """
 
 from __future__ import annotations
@@ -26,9 +26,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tinypathtracer_tpu_torch.config import RenderConfig
 from tinypathtracer_tpu_torch.models.scene import FlatScene
+from tinypathtracer_tpu_torch.parallel.mesh import SAMPLE_AXIS, axis
+from tinypathtracer_tpu_torch.parallel.shard import (mesh_device, pixel_shard,
+                                                     sample_split)
 from tinypathtracer_tpu_torch.render import renderer as rend
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam's defaults
@@ -178,6 +182,73 @@ def make_train_step(cfg: RenderConfig, lr: float = 1e-2,
         params = params.to(dev)
         loss, grads = loss_and_grads(params, scene.to(dev), cfg,
                                      target.to(dev), key.to(dev))
+        params, opt_state = adam_step(params, grads, opt_state.to(dev), lr)
+        if project_fn is not None:
+            params = project_fn(params)
+        return params, opt_state, loss
+
+    return step
+
+
+def sharded_loss_and_grads(params: Params, scene: FlatScene,
+                           cfg: RenderConfig, target, key, mesh):
+    """(loss, grads as Params) of mse_loss over a ("data", "sample") mesh
+    (parallel/mesh.py), equal on every rank. Call on every rank with the
+    same arguments on the mesh's device; target is the full [H, W, 3]
+    image (raw bottom-up rows).
+
+    Each rank renders its pixel shard for its sample range, as
+    parallel/shard.py does, and keeps its partial radiance sum r under
+    autograd. A detached copy, all-reduced over "sample", is the pixels'
+    image; the residual against the target (padding lanes masked out)
+    gives the cotangent c of the squared error with respect to r, and
+    (c * r).sum() is back-propagated. The gradients and the loss sum
+    (counted once, on the first rank of each sample group) are
+    all-reduced over the whole mesh in one buffer and divided by
+    n_pixels * 3: the gradient of the global mean loss, the one-device
+    gradient up to rounding.
+    """
+    spp_local, offset = sample_split(cfg, mesh)
+    n_sample, s_rank, sample_group = axis(mesh, SAMPLE_AXIS)
+    pix, valid = pixel_shard(cfg, mesh, scene.device)
+    leaves = Params(*(x.detach().requires_grad_() for x in params.leaves()))
+    state = rend.prepare_state(apply_params(scene, leaves), cfg)
+    rad = rend.render_pixel_ids(state, cfg, pix, key, spp=spp_local,
+                                sample_offset=offset)
+    img = rad.detach().clone()
+    if n_sample > 1:
+        dist.all_reduce(img, group=sample_group)
+    tgt = target.reshape(-1, 3)[pix]
+    resid = torch.where(valid[:, None], img / cfg.spp - tgt, 0.0)
+    # d(sum of squared residuals) / d(this rank's sample sum)
+    (rad * (2.0 * resid / cfg.spp)).sum().backward()
+    loss_sum = resid.square().sum() if s_rank == 0 else resid.new_zeros(())
+    grads = leaves.grads().leaves()
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss_sum.reshape(1)])
+    dist.all_reduce(flat)              # the mesh covers the whole group
+    flat = flat / (cfg.n_pixels * 3)
+    parts = flat[:-1].split([g.numel() for g in grads])
+    return flat[-1], Params(*(p.reshape(g.shape)
+                              for p, g in zip(parts, grads)))
+
+
+def make_sharded_train_step(cfg: RenderConfig, mesh, lr: float = 1e-2,
+                            project_fn: Optional[Callable] = None):
+    """Distributed train step over a ("data", "sample") mesh, on the
+    mesh's device: (params, opt_state, scene, target, key) -> (params,
+    opt_state, loss), as `make_train_step`. Call on every rank with the
+    same arguments; `target` is the full [H, W, 3] image. The gradient
+    is `sharded_loss_and_grads`'s, equal on every rank, so Adam runs on
+    every rank on equal inputs and the parameters stay equal on every
+    rank. The inputs move to this rank's device."""
+    sample_split(cfg, mesh)            # spp must split over "sample"
+    dev = mesh_device(mesh)
+
+    def step(params, opt_state, scene, target, key):
+        params = params.to(dev)
+        loss, grads = sharded_loss_and_grads(params, scene.to(dev), cfg,
+                                             target.to(dev), key.to(dev),
+                                             mesh)
         params, opt_state = adam_step(params, grads, opt_state.to(dev), lr)
         if project_fn is not None:
             params = project_fn(params)

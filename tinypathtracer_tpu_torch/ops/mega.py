@@ -39,7 +39,9 @@ paths the kernel traces are the textured paths. `trace_paths_mega` runs
 the save_hits instance hits-only, drops its radiance and returns the
 shading replay on its hits (`trace_paths(stored_hits=...)`), which
 applies the textures and is differentiable, texels included, with no
-autograd.Function and no intersection in the backward pass. The JAX
+autograd.Function and no intersection in the backward pass; like every
+replay under autograd it is rematerialised bounce by bounce, so a
+chunk's graph holds only the carries between bounces. The JAX
 package's "replay" backward is not ported.
 """
 
@@ -57,7 +59,8 @@ from tinypathtracer_tpu_torch.ops.lights import lights_block
 from tinypathtracer_tpu_torch.ops.sampling import fold_all, lane_uniform
 from tinypathtracer_tpu_torch.render.integrator import (Paths, TraceData,
                                                         end_bounce, env_miss,
-                                                        scatter, trace_paths)
+                                                        scatter, trace_bounces,
+                                                        trace_paths)
 from tinypathtracer_tpu_torch.utils import cuda_build
 from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
 
@@ -427,11 +430,11 @@ class _MegaStored(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() if need else x
                       for x, need in zip(inputs, needs)]
-            rad = trace_paths(TraceData(*leaves[2:]), cfg, None, leaves[0],
-                              leaves[1], None,
-                              stored_hits=unpack_hits(hits, perm,
-                                                      cfg.max_depth),
-                              uniforms=u8d)
+            # differentiated at once: no per-bounce rematerialisation
+            rad = trace_bounces(TraceData(*leaves[2:]), cfg, None, leaves[0],
+                                leaves[1], None,
+                                unpack_hits(hits, perm, cfg.max_depth), u8d,
+                                remat=False)
             wrt = [x for x, need in zip(leaves, needs) if need]
             grads = iter(torch.autograd.grad(rad, wrt, ct, allow_unused=True))
         return (None, None, None) + tuple(next(grads) if need else None

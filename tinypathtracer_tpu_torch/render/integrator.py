@@ -54,6 +54,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tinypathtracer_tpu_torch.config import RenderConfig
 from tinypathtracer_tpu_torch.models.envlight import (EnvSamplingTables,
@@ -568,7 +569,29 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
     occlusion bits). When given, no intersector runs (closest_hit may be
     None): the loop replays the shading on the recorded hits. Reference
     mode only.
+
+    When autograd records (grad enabled and an input needs a gradient),
+    each bounce is rematerialised, as the JAX integrator's
+    `lax.scan(jax.checkpoint(bounce))`: only the [N]-sized carries
+    between bounces persist, and the backward pass recomputes a bounce
+    from them, its closest-hit queries included (stored hits are
+    replayed, no kernel runs). Hit ids are detached and the intersectors
+    deterministic, so the recompute equals the forward bit for bit.
     """
+    fields = [getattr(data, f.name) for f in dataclasses.fields(data)]
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in [origins, dirs] + fields)
+    return trace_bounces(data, cfg, closest_hit, origins, dirs, lane_keys,
+                         stored_hits, uniforms, remat)
+
+
+def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
+                  origins, dirs, lane_keys, stored_hits, uniforms,
+                  remat: bool):
+    """`trace_paths` with the rematerialisation chosen by the caller:
+    False where the caller differentiates the result at once and its
+    graph never outlives the call (the megakernel's stored-hit backward,
+    ops/mega.py), so recomputing would only cost time."""
     physical = cfg.mode == "physical"
     if physical and (stored_hits is not None or uniforms is not None):
         raise ValueError("stored_hits and uniforms are reference mode only")
@@ -578,15 +601,15 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
         fid, t, uv = closest_hit(o.detach(), d.detach(), mask=mask)
         return fid, t.detach(), uv.detach()
 
-    st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
-    # physical mode: the previous bounce was a camera ray or specular,
-    # and its solid-angle pdf (0 there)
-    prev_spec = st.alive
-    prev_pdf = torch.zeros_like(st.thr[0])
     lights = lights_block(data)
-    for depth in range(cfg.max_depth):
-        if not bool(st.alive.any()):
-            break
+
+    def bounce(depth: int, *carry):
+        # carry: o, d, thr, rad (three [N] tensors each), alive, and the
+        # physical estimator's prev_spec (the last bounce was a camera ray
+        # or specular) and prev_pdf (its solid-angle pdf, 0 there)
+        st = Paths(o=carry[0:3], d=carry[3:6], thr=carry[6:9],
+                   rad=carry[9:12], alive=carry[12])
+        prev_spec, prev_pdf = carry[13], carry[14]
         u = (lane_uniform(fold_all(lane_keys, depth), 9 if physical else 6).T
              if uniforms is None else uniforms[8 * depth:8 * depth + 6])
         o3, d3 = torch.stack(st.o, dim=1), torch.stack(st.d, dim=1)
@@ -615,16 +638,33 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
             st, prev_spec, prev_pdf = physical_bounce(
                 data, cfg, st, prev_spec, prev_pdf, fid, miss, t, bu, bv, row,
                 u, lights, hit_query, depth)
-            continue
-        st, sc = scatter(st, miss, t, bu, bv, row, u, lights, data.n_lights)
-        if stored_hits is None:
-            h3 = torch.stack(sc.h, dim=1)
-            fid2, _, _ = hit_query(h3, torch.stack(sc.d2, dim=1),
-                                   mask=sc.live & sc.do_extra)
-            unocc = [hit_query(h3, torch.stack(wi, dim=1), mask=sc.live)[0] < 0
-                     for wi, _ in sc.lights]
         else:
-            fid2, occ = stored_hits[3][depth], stored_hits[4][depth]
-            unocc = [((occ >> li) & 1) == 0 for li in range(data.n_lights)]
-        st = end_bounce(st, sc, fid2, data.face_emission, unocc)
-    return torch.stack(st.rad, dim=1)
+            st, sc = scatter(st, miss, t, bu, bv, row, u, lights,
+                             data.n_lights)
+            if stored_hits is None:
+                h3 = torch.stack(sc.h, dim=1)
+                fid2, _, _ = hit_query(h3, torch.stack(sc.d2, dim=1),
+                                       mask=sc.live & sc.do_extra)
+                unocc = [hit_query(h3, torch.stack(wi, dim=1),
+                                   mask=sc.live)[0] < 0
+                         for wi, _ in sc.lights]
+            else:
+                fid2, occ = stored_hits[3][depth], stored_hits[4][depth]
+                unocc = [((occ >> li) & 1) == 0
+                         for li in range(data.n_lights)]
+            st = end_bounce(st, sc, fid2, data.face_emission, unocc)
+        return (*st.o, *st.d, *st.thr, *st.rad, st.alive, prev_spec,
+                prev_pdf)
+
+    st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
+    carry = (*st.o, *st.d, *st.thr, *st.rad, st.alive, st.alive,
+             torch.zeros_like(st.thr[0]))
+    for depth in range(cfg.max_depth):
+        if not bool(carry[12].any()):
+            break
+        if remat:
+            carry = checkpoint(bounce, depth, *carry, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            carry = bounce(depth, *carry)
+    return torch.stack(carry[9:12], dim=1)

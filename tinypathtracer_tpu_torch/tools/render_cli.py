@@ -9,7 +9,10 @@ the caller asks for the CPU):
 
 --aov writes a debug AOV (render/aov.py) instead of the beauty pass;
 --stats prints the render's RenderStats JSON (utils/metrics.py) to
-stderr. Every PNG has top-down rows: the JAX CLI writes its AOV PNGs in
+stderr. --shard renders over a ("data", "sample") mesh of every rank
+(parallel/): run one process a card with COORDINATOR_ADDRESS,
+NUM_PROCESSES and PROCESS_ID set (none set: one rank); rank 0 writes
+the PNG. On the CPU (--device cpu) the ranks use gloo. Every PNG has top-down rows: the JAX CLI writes its AOV PNGs in
 raw bottom-up order, the port flips them like the beauty pass.
 """
 
@@ -54,9 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "RenderConfig.rays_per_dispatch rays)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--shard", action="store_true",
-                   help="shard pixels across all local devices (not ported "
-                        "yet: ROADMAP item 1.6, torch.distributed "
-                        "sharding; the option exits with an error)")
+                   help="shard pixels over every rank of a "
+                        "torch.distributed group started from "
+                        "COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID "
+                        "(one rank when none is set)")
     p.add_argument("--stats", action="store_true",
                    help="print timing JSON to stderr")
     p.add_argument("--device", default="cuda",
@@ -67,9 +71,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.shard:
-        parser.error("--shard: torch.distributed sharding is not ported yet "
-                     "(ROADMAP item 1.6)")
 
     from tinypathtracer_tpu_torch import (RenderConfig, Renderer, load_scene,
                                           prng_key)
@@ -83,6 +84,10 @@ def main(argv=None):
                                                         timed_render)
 
     dev = resolve_device(args.device, "render_cli")
+    if args.shard and not args.aov:     # an AOV is not sharded, as in JAX
+        from tinypathtracer_tpu_torch.parallel import initialize
+
+        initialize(device=dev)
     env = load_env_image(args.env) if args.env else gradient_sky(64, 128)
     flat = load_scene(args.scene).flatten(env_radiance=env, device=dev)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
@@ -98,6 +103,22 @@ def main(argv=None):
         stats = RenderStats(width=cfg.width, height=cfg.height, spp=cfg.spp,
                             max_depth=cfg.max_depth, seconds=dt,
                             stages={f"aov_{args.aov}": dt})
+    elif args.shard:
+        import torch.distributed as dist
+
+        from tinypathtracer_tpu_torch.parallel import (make_mesh,
+                                                       make_sharded_renderer)
+
+        t0 = time.perf_counter()
+        img = make_sharded_renderer(cfg, make_mesh(device=dev))(flat, key)
+        synchronize()
+        stats = RenderStats(width=cfg.width, height=cfg.height, spp=cfg.spp,
+                            max_depth=cfg.max_depth,
+                            seconds=time.perf_counter() - t0)
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank:
+            return
     else:
         img, stats = timed_render(Renderer(cfg, device=dev), flat, key)
     film.write_png(args.out, img)
