@@ -54,7 +54,7 @@ non-zero):
      model, registers, and the no-refill grid, whose rows must equal the
      kernel's);
   7. the train step, the second main path, through the public entry
-     point make_train_step(cfg, lr=1e-2, device="cuda") on the room at
+     point make_train_step(cfg, adam(1e-2), device="cuda") on the room at
      512x512 @16 spp d8 with a zero target, launch counters zeroed: one
      warm-up step, best of 3 step times, fwd+bwd camera rays/s, loss, peak
      memory, a forward / backward / Adam split (CUDA events); the step
@@ -184,7 +184,21 @@ non-zero):
      parameters within rtol 1e-5 of phase 7's step, equal on every rank,
      the save_hits instance once per rank chunk and no other kernel,
      step time and peak per rank; then render_cli --shard as a one-rank
-     subprocess, its PNG equal byte for byte to phase 28's.
+     subprocess, its PNG equal byte for byte to phase 28's;
+ 32. the flagship fwd+bwd: make_train_step(cfg, adam(1e-2)) on the room
+     at 1920x1080 @16 spp d8 against a zero target, untextured and
+     textured: a warm-up step (its host-device synchronisations
+     counted) and 2 timed, best time, spread, fwd+bwd camera rays/s,
+     peak memory, 32 save_hits launches a step and no other kernel; the
+     loss equal bit for bit to a no-grad frame's MSE, the gradient
+     within 1e-3 of a central difference in the emissive material's
+     emission;
+ 33. the entry points of tinypathtracer_tpu_torch.entry on the card:
+     entry() once, its frame equal bit for bit to render_frame's at the
+     JAX entry's config (the megakernel route); dryrun_multichip(2),
+     two gloo ranks on this card, mesh (1, 2): its loss within 1e-6 of
+     the one-device step's at the dry run's config, save_hits launches
+     on each rank and no other kernel.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s;
@@ -858,7 +872,7 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
     params = inv.Params.from_scene(scene)
     state = inv.AdamState.init(params)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
-    step = inv.make_train_step(cfg, LR, device=dev.type)
+    step = inv.make_train_step(cfg, inv.adam(LR), device=dev.type)
     zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1029,7 +1043,7 @@ def train_phase(T, cfg, host_scene):
     params = inv.Params.from_scene(scene)
     state = inv.AdamState.init(params)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
-    step = inv.make_train_step(cfg, LR, device="cuda")
+    step = inv.make_train_step(cfg, inv.adam(LR), device="cuda")
     dense.dense_hit.launches = 0
     mega.mega_trace.launches = 0
     mega.mega_trace.launches_save_hits = 0
@@ -1818,7 +1832,7 @@ def physical_train(T, scene, sky, pcfg, dev):
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss {float(loss):.6f}, "
         f"every gradient finite; |g| max per leaf "
         f"{[float(g.abs().max()) for g in grads.leaves() if g.numel()]}")
-    step = inv.make_train_step(pcfg, LR, device=dev.type)
+    step = inv.make_train_step(pcfg, inv.adam(LR), device=dev.type)
     zero_launches()
     best = float("inf")
     for i in range(3):
@@ -1968,7 +1982,7 @@ def textured_train(T, room_t, cfg, small, dev):
     params = inv.Params.from_scene(scene)
     state = inv.AdamState.init(params)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
-    step = inv.make_train_step(cfg, LR, device="cuda")
+    step = inv.make_train_step(cfg, inv.adam(LR), device="cuda")
     zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2269,9 +2283,6 @@ def cli_phase(T, path, sky, cfg, tmp):
 STEPS_BEFORE_REMAT = {"large scene": (1430.5, 13.41),
                       "physical room": (1287.6, 19.32),
                       "textured room": (1044.0, 15.87)}
-# seconds a group of rank processes may take
-RANK_TIMEOUT = 300
-
 
 def remat_phase(steps):
     """Phase 29: the large, physical and textured steps' best times and
@@ -2287,36 +2298,12 @@ def remat_phase(steps):
                                  f"{peak:.2f} GiB")
 
 
-def spawn_ranks(fn, world, tmp, *args):
-    """Run fn(rank, world, tmp, *args) in world processes ("spawn"), all
-    on this card; each saves its result to {tmp}/{fn.__name__}_{rank}.pt.
-    A rank that raises or exits non-zero, or a group that outlasts
-    RANK_TIMEOUT, fails the run; every process is stopped before this
-    returns. Returns the ranks' results in rank order."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.start_processes(fn, args=(world, tmp) + args, nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + RANK_TIMEOUT
-    try:
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"{fn.__name__}: {world} ranks did not "
-                                     f"finish in {RANK_TIMEOUT} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.terminate()
-            proc.join()
-    return [torch.load(f"{tmp}/{fn.__name__}_{r}.pt") for r in range(world)]
-
-
 def nccl_rank(rank, world, tmp):
     """A rank of an NCCL group whose ranks share one card: its first
     collective must be refused. Saves the error text."""
     import torch.distributed as dist
 
-    from tinypathtracer_tpu_torch.parallel import initialize
+    from tinypathtracer_tpu_torch.parallel import initialize, rank_file
 
     initialize(f"file://{tmp}/nccl_store", world, rank)
     x = torch.ones(4, device="cuda")
@@ -2326,7 +2313,7 @@ def nccl_rank(rank, world, tmp):
         torch.cuda.synchronize()
     except Exception as e:          # the refusal this rank is here to see
         error = f"{type(e).__name__}: {e}"
-    torch.save({"error": error}, f"{tmp}/nccl_rank_{rank}.pt")
+    torch.save({"error": error}, rank_file(tmp, rank))
     sys.stdout.flush()
     os._exit(0)       # skip tearing down a communicator that never formed
 
@@ -2340,11 +2327,12 @@ def shard_rank(rank, world, tmp, meshes, large_mesh, train_meshes):
     import torch.distributed as dist
 
     import tinypathtracer_tpu_torch as T
-    from tinypathtracer_tpu_torch.diff import (AdamState, Params,
+    from tinypathtracer_tpu_torch.diff import (AdamState, Params, adam,
                                                make_sharded_train_step)
     from tinypathtracer_tpu_torch.models.envlight import gradient_sky
     from tinypathtracer_tpu_torch.parallel import (initialize, make_mesh,
-                                                   make_sharded_renderer)
+                                                   make_sharded_renderer,
+                                                   rank_file)
 
     initialize(f"file://{tmp}/gloo_store_{world}", world, rank,
                backend="gloo")
@@ -2377,7 +2365,7 @@ def shard_rank(rank, world, tmp, meshes, large_mesh, train_meshes):
     params = Params.from_scene(room)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
     for shape in train_meshes:
-        step = make_sharded_train_step(cfg, make_mesh(*shape), LR)
+        step = make_sharded_train_step(cfg, make_mesh(*shape), adam(LR))
         (new, state, loss), ms, launches, peak = timed(
             lambda: step(params, AdamState.init(params), room, target,
                          T.prng_key(1)))
@@ -2385,7 +2373,7 @@ def shard_rank(rank, world, tmp, meshes, large_mesh, train_meshes):
             "loss": float(loss), "params": [x.cpu() for x in new.leaves()],
             "adam_step": state.step, "ms": ms, "launches": launches,
             "peak": peak}
-    torch.save(out, f"{tmp}/shard_rank_{rank}.pt")
+    torch.save(out, rank_file(tmp, rank))
     dist.destroy_process_group()
 
 
@@ -2413,7 +2401,8 @@ def shard_frames_phase(T, cfg, key, host_room, room_frame, large_frame,
     import torch.distributed as dist
 
     from tinypathtracer_tpu_torch.parallel import (initialize, make_mesh,
-                                                   make_sharded_renderer)
+                                                   make_sharded_renderer,
+                                                   spawn_ranks)
 
     initialize()                     # no variable set: one rank, NCCL
     mesh = make_mesh()
@@ -2545,6 +2534,218 @@ def shard_train_phase(pair, reference, path, cfg, tmp):
         f"{time.perf_counter() - t0:.1f} s wall; PNG equal byte for byte "
         f"to phase 28's")
     return total
+
+
+# ---- phases 32-33: the flagship fwd+bwd, the entry points -----------------
+
+# the flagship step: 1920x1080 @16 spp d8, 33,177,600 camera paths in
+# 32 chunks of 65,536 pixels (2**20 lanes)
+FLAGSHIP = dict(width=1920, height=1080, spp=16, max_depth=8)
+FLAGSHIP_CHUNKS = 32
+FD_RTOL = 1e-3
+# the config of the JAX package's entry() (__graft_entry__.py)
+ENTRY_CFG = dict(width=64, height=64, spp=2, max_depth=4, intersector="dense")
+# the config of its dryrun_multichip()
+DRYRUN_CFG = dict(width=16, height=16, spp=2, max_depth=2, intersector="dense")
+
+
+def count_syncs(fn):
+    """(fn()'s result, the host-device synchronisations it made, as
+    {"file:line": count} of the Python line that made each): under
+    torch.cuda.set_sync_debug_mode("warn") each one is a warning. The
+    mode is a prototype and may miss some."""
+    import collections
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    root = os.path.dirname(os.path.abspath(__file__)) + os.sep
+    return out, collections.Counter(
+        f"{w.filename.replace(root, '')}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message))
+
+
+def flagship_train(T, sky, dev):
+    """Phase 32: the flagship fwd+bwd, make_train_step(cfg, adam(LR)) on
+    the room at 1920x1080 @16 spp d8 against a zero target (bench.py's
+    fwdbwd), untextured (kernel B's save_hits forward, the stored-hit
+    replay backward) and textured (save_hits hits-only, the replay under
+    autograd, each bounce rematerialised; texels among the leaves). Per
+    variant: a warm-up step (its host-device synchronisations counted),
+    then 2 timed steps, each ended by a synchronise; the save_hits
+    instance FLAGSHIP_CHUNKS times a step and no other kernel; the peak
+    memory (reset before the variant). The last step's loss must equal
+    the MSE of a no-grad render_frame at its key bit for bit, and the
+    gradient the optimiser received (an adam(LR) wrapped to record it)
+    must agree within FD_RTOL with a central difference of the loss in
+    the emissive material's emission (quadratic in it: exact up to the
+    two losses' rounding). Returns {variant: numbers} and the save_hits
+    launches of the steps."""
+    from tinypathtracer_tpu_torch.diff import invrender as inv
+
+    cfg = T.RenderConfig(**FLAGSHIP)
+    n_rays = cfg.n_pixels * cfg.spp
+    if chunks_of(cfg) != FLAGSHIP_CHUNKS:
+        raise AssertionError(f"the flagship frame has {chunks_of(cfg)} "
+                             f"chunks, want {FLAGSHIP_CHUNKS}")
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    out, total = {}, 0
+    for variant, textured in (("untextured", False), ("textured", True)):
+        scene = T.sphere_grid_scene(*ROOM, env_radiance=sky, device=dev,
+                                    textured=textured)
+        params = inv.Params.from_scene(scene)
+        adam = inv.adam(LR)
+        seen = []
+
+        def recorded(p, g, s):
+            seen[:] = [g]
+            return adam.step(p, g, s)
+
+        step = inv.make_train_step(cfg, inv.Optimizer(adam.init, recorded),
+                                   device="cuda")
+        state = adam.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(3):                  # a warm-up step, then 2 timed
+            key = T.prng_key(i + 1, dev)
+            zero_launches()
+            t0 = time.perf_counter()
+            if i == 0:
+                (new, new_state, loss), sites = count_syncs(
+                    lambda: step(params, state, scene, target, key))
+                syncs = sum(sites.values())
+            else:
+                new, new_state, loss = step(params, state, scene, target,
+                                            key)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = read_launches()
+            others = {k: v for k, v in launches.items()
+                      if k != "mega_save_hits" and v}
+            if launches["mega_save_hits"] != FLAGSHIP_CHUNKS or others:
+                raise AssertionError(f"flagship {variant} step {i}: want "
+                                     f"{FLAGSHIP_CHUNKS} save_hits launches "
+                                     f"and nothing else, got {launches}")
+            total += launches["mega_save_hits"]
+            if not (math.isfinite(float(loss)) and all(
+                    torch.isfinite(x).all() for x in new.leaves())):
+                raise AssertionError(f"flagship {variant} step {i}: loss "
+                                     f"{float(loss)} or the parameters are "
+                                     f"not finite")
+            log(f"flagship {variant} step {i} "
+                f"({'warm-up' if i == 0 else 'timed'}): {dt * 1e3:.1f} ms, "
+                f"loss {float(loss):.8f}, Adam step {new_state.step}")
+            if i:
+                times.append(dt)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        best, spread = min(times), max(times) - min(times)
+        log(f"flagship {variant} train step, {cfg.width}x{cfg.height} "
+            f"@{cfg.spp}spp d{cfg.max_depth}, {n_rays} camera paths, "
+            f"{FLAGSHIP_CHUNKS} chunks: best of 2 {best * 1e3:.1f} ms "
+            f"(spread {spread * 1e3:.1f} ms), {n_rays / best:,.0f} fwd+bwd "
+            f"camera rays/s; peak memory {peak:.2f} GiB; "
+            f"{FLAGSHIP_CHUNKS} save_hits launches a step; {syncs} "
+            f"host-device synchronisations in the warm-up step, by line: "
+            f"{dict(sites.most_common())}")
+
+        with torch.no_grad():
+            img = T.render_frame(scene, cfg, key) / cfg.spp
+            want = torch.mean(torch.square(img - target))
+        if not torch.equal(loss, want):
+            raise AssertionError(f"flagship {variant}: the step's loss "
+                                 f"{float(loss)!r} != the no-grad frame's "
+                                 f"MSE {float(want)!r}")
+        del img
+        i_em = int(torch.argmax(scene.mtl_emission))
+        if not float(scene.mtl_emission[i_em]) > 1.0:
+            raise AssertionError("the room's emissive material is dim")
+
+        def loss_at(delta):
+            x = params.mtl_emission.clone()
+            x[i_em] += delta
+            with torch.no_grad():
+                return float(inv.mse_loss(
+                    dataclasses.replace(params, mtl_emission=x), scene, cfg,
+                    target, key))
+
+        fd = (loss_at(1.0) - loss_at(-1.0)) / 2.0
+        g = float(seen[0].mtl_emission[i_em])
+        rel = abs(fd - g) / abs(g)
+        log(f"flagship {variant}: loss equal bit for bit to the no-grad "
+            f"frame's MSE ({float(want):.8f}); d loss / d emission[{i_em}]: "
+            f"step {g:.8e}, central difference {fd:.8e}, relative "
+            f"difference {rel:.3e}")
+        if not rel <= FD_RTOL:
+            raise AssertionError(f"flagship {variant}: the gradient is not "
+                                 f"within {FD_RTOL} of the central "
+                                 f"difference")
+        out[variant] = {"best_ms": best * 1e3, "spread_ms": spread * 1e3,
+                        "rays_per_s": n_rays / best, "peak_gib": peak,
+                        "syncs": syncs, "fd_rel": rel}
+        del scene, params, new, state, new_state, seen, step
+    return out, total
+
+
+def entry_phase(T):
+    """Phase 33: the entry points of tinypathtracer_tpu_torch.entry on
+    the card. entry() called once: its frame equal bit for bit to
+    render_frame's at the JAX entry's config on the same inputs, finite
+    and lit. dryrun_multichip(2): two gloo ranks on this card, mesh
+    (1, 2), a sharded Adam step whose loss must be within 1e-6 of the
+    one-device make_train_step's at the dry run's config (the ranks'
+    equality is checked inside), with save_hits launches only. Returns
+    the launches of both, by kernel."""
+    from tinypathtracer_tpu_torch.diff import Params, adam, make_train_step
+    from tinypathtracer_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry()
+    zero_launches()
+    t0 = time.perf_counter()
+    img = fn(*args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    cfg = T.RenderConfig(**ENTRY_CFG)
+    want = T.render_frame(*args[:1], cfg, args[1])
+    check_image(img / cfg.spp, cfg, "entry()'s frame")
+    if not torch.equal(img, want):
+        raise AssertionError("entry()'s frame differs from render_frame's")
+    if not (launches["mega"] and launches["dense"] == 0):
+        raise AssertionError(f"entry() must run the megakernel: {launches}")
+    log(f"entry(): {cfg.width}x{cfg.height} @{cfg.spp}spp d{cfg.max_depth}, "
+        f"{dt * 1e3:.1f} ms (first call), equal bit for bit to render_frame; "
+        f"launches {launches}")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2)
+    dt = time.perf_counter() - t0
+    check_rank_launches(dry["launches"], "mega_save_hits",
+                        "dryrun_multichip(2)")
+    scene, key = args[0], T.prng_key(7, "cuda")
+    dcfg = T.RenderConfig(**DRYRUN_CFG)
+    params = Params.from_scene(scene)
+    opt = adam(1e-2)
+    _, _, loss = make_train_step(dcfg, opt)(
+        params, opt.init(params), scene,
+        torch.zeros(dcfg.height, dcfg.width, 3, device="cuda"), key)
+    rel = abs(dry["loss"] - float(loss)) / float(loss)
+    log(f"dryrun_multichip(2) on this card: mesh {dry['mesh']}, loss "
+        f"{dry['loss']:.8f} (one device {float(loss):.8f}, relative "
+        f"difference {rel:.3e}), {dt:.1f} s with the ranks' start; "
+        f"launches {dry['launches']}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"dryrun_multichip(2)'s loss {dry['loss']} is "
+                             f"not the one-device step's {float(loss)}")
+    for k, v in dry["launches"].items():
+        launches[k] += v
+    return launches
 
 
 def main():
@@ -2884,6 +3085,12 @@ def main():
         sharded["mega_save_hits"] = shard_train_phase(
             pair, step_reference, tex_path, cfg, tmp)
         phase_done("phase 31")
+
+    # ---- 32-33. the flagship fwd+bwd, the entry points -------------------
+    flagship, flagship_launches = flagship_train(T, sky, dev)
+    phase_done("phase 32")
+    entry_launches = entry_phase(T)
+    phase_done("phase 33")
     log(f"launches of the main paths of phases 23-27: {textured}")
     for kernel in ("dense", "packet", "mega_save_hits"):
         if not textured.get(kernel):
@@ -2913,16 +3120,20 @@ def main():
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",
          "launches": launches["mega"] + textured.get("mega", 0)
-         + sharded["mega"], "max_abs_err": err_b,
+         + sharded["mega"] + entry_launches["mega"], "max_abs_err": err_b,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": bounds["mega"][0],
          "bound_by": bounds["mega"][1], "library_ms": None,
-         "sharded_launches": sharded["mega"]},
+         "sharded_launches": sharded["mega"],
+         "entry_launches": entry_launches["mega"]},
         {"name": "mega_trace_save_hits", "route": "cuda",
          "source": "tinypathtracer_tpu_torch/csrc/mega.cu",
          "replaces": "tinypathtracer_tpu/ops/mega.py:224",
          "launches": train_launches["mega_save_hits"]
-         + textured.get("mega_save_hits", 0) + sharded["mega_save_hits"],
+         + textured.get("mega_save_hits", 0) + sharded["mega_save_hits"]
+         + flagship_launches + entry_launches["mega_save_hits"],
          "max_abs_err": err_h, "sharded_launches": sharded["mega_save_hits"],
+         "flagship_launches": flagship_launches,
+         "entry_launches": entry_launches["mega_save_hits"],
          "ms": h_ms, "plain_ms": h_plain,
          "bound_ms": bounds["mega_save_hits"][0],
          "bound_by": bounds["mega_save_hits"][1], "library_ms": None,
@@ -2966,6 +3177,7 @@ def main():
         f"{tex_step[1]:.2f} GiB; other scenes {tex_other}; 1920x1080 @64spp "
         f"steps {big_steps} ms, total {big_ms:.1f} ms, {big_peak:.2f} GiB; "
         f"AOVs {aov_ms}; CLI stats {cli_stats}")
+    log(f"flagship fwd+bwd 1920x1080 @16spp d8: {flagship}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

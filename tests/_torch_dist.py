@@ -1,5 +1,5 @@
 """Rank programs of tests/test_torch_shard.py: each runs in a process
-started by `start` (torch.multiprocessing, "spawn" start method), joins
+started by `start` (the port's `parallel.spawn.start_ranks`), joins
 a gloo group through a file:// store in the test's temporary directory
 (so parallel test workers never race for a port), runs the port's
 sharded paths on the CPU with one thread and saves what it got to
@@ -11,7 +11,9 @@ import os
 
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
+
+from tinypathtracer_tpu_torch.parallel.spawn import (collect_ranks, rank_file,
+                                                     start_ranks as start)
 
 # 255 pixels: the data shards of 2 and 4 ranks each hold a padding lane
 FRAME = dict(width=17, height=15, spp=4, max_depth=2)
@@ -19,21 +21,11 @@ LR = 0.05
 DESCENT_STEPS = 12
 
 
-def start(fn, world: int, tmp, *args):
-    """Start fn(rank, world, tmp, *args) on world ranks; `collect` waits
-    for them."""
-    return mp.start_processes(fn, args=(world, str(tmp)) + args,
-                              nprocs=world, join=False,
-                              start_method="spawn")
-
-
 def collect(context, tmp) -> list:
-    """What each rank of a started context saved, in rank order, once
-    all have exited. A rank that raised fails the call."""
-    while not context.join():
-        pass
-    return [torch.load(os.path.join(str(tmp), f"rank{r}.pt"))
-            for r in range(len(context.processes))]
+    """What each rank of a context from `start` saved, in rank order,
+    once all have exited, with no deadline. A rank that raised fails
+    the call."""
+    return collect_ranks(context, tmp, timeout=None)
 
 
 def _scene(arrays):
@@ -57,7 +49,7 @@ def _train(arrays, target, mesh):
     """The sharded loss and gradients, and the parameters after one
     sharded Adam step (lr 1e-2), of the lit room against target."""
     from tinypathtracer_tpu_torch import RenderConfig, prng_key
-    from tinypathtracer_tpu_torch.diff import (AdamState, Params,
+    from tinypathtracer_tpu_torch.diff import (AdamState, Params, adam,
                                                make_sharded_train_step)
     from tinypathtracer_tpu_torch.diff.invrender import \
         sharded_loss_and_grads
@@ -67,8 +59,9 @@ def _train(arrays, target, mesh):
     params = Params.from_scene(scene)
     loss, grads = sharded_loss_and_grads(params, scene, cfg, target,
                                          prng_key(5), mesh)
-    stepped, state, step_loss = make_sharded_train_step(cfg, mesh)(
-        params, AdamState.init(params), scene, target, prng_key(5))
+    step = make_sharded_train_step(cfg, mesh, adam(1e-2))
+    stepped, state, step_loss = step(params, AdamState.init(params), scene,
+                                     target, prng_key(5))
     return {"loss": loss, "grads": grads.leaves(), "step_loss": step_loss,
             "params": stepped.leaves(), "adam_step": state.step}
 
@@ -78,7 +71,7 @@ def _descent(arrays, mesh):
     with base color 0 perturbed, against the sharded frame of the true
     room; the projection keeps every other leaf at its true value."""
     from tinypathtracer_tpu_torch import RenderConfig, prng_key
-    from tinypathtracer_tpu_torch.diff import (AdamState, Params,
+    from tinypathtracer_tpu_torch.diff import (AdamState, Params, adam,
                                                make_sharded_train_step)
     from tinypathtracer_tpu_torch.parallel import render_frame_sharded
 
@@ -95,7 +88,8 @@ def _descent(arrays, mesh):
         return dataclasses.replace(
             true, mtl_base_color=torch.clamp(p.mtl_base_color, 0.0, 1.0))
 
-    step = make_sharded_train_step(cfg, mesh, lr=LR, project_fn=only_albedo)
+    step = make_sharded_train_step(cfg, mesh, adam(LR),
+                                   project_fn=only_albedo)
     state, losses = AdamState.init(params), []
     for _ in range(DESCENT_STEPS):
         params, state, loss = step(params, state, scene, target, key)
@@ -133,13 +127,14 @@ def pair_rank(rank, world, tmp, scenes, lit_room, target):
     out["train"] = {k: _train(lit_room, target, m) for k, m in meshes.items()}
     out["descent"] = _descent(scenes["room"], meshes[(2, 1)])
     try:
-        from tinypathtracer_tpu_torch.diff import make_sharded_train_step
+        from tinypathtracer_tpu_torch.diff import (adam,
+                                                   make_sharded_train_step)
 
         make_sharded_train_step(RenderConfig(**dict(FRAME, spp=3)),
-                                meshes[(1, 2)])
+                                meshes[(1, 2)], adam(1e-2))
     except ValueError as e:
         out["spp_error"] = str(e)
-    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.save(out, rank_file(tmp, rank))
     dist.destroy_process_group()
 
 
@@ -163,6 +158,29 @@ def quad_rank(rank, world, tmp, scenes, lit_room, target):
             out["mesh_errors"].append(str(e))
     out["frames"] = {k: _frames(scenes, m) for k, m in meshes.items()}
     out["train"] = {(2, 2): _train(lit_room, target, meshes[(2, 2)])}
-    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.save(out, rank_file(tmp, rank))
     dist.destroy_process_group()
 
+
+
+def sgd_rank(rank, world, tmp, lit_room, target, lr, momentum):
+    """Two ranks on a (2, 1) mesh: one make_sharded_train_step step with
+    sgd(lr, momentum) on the lit room against target (key 5), from the
+    optimiser's initial state; saves the loss, new parameters and
+    trace."""
+    torch.set_num_threads(1)
+    from tinypathtracer_tpu_torch import RenderConfig, prng_key
+    from tinypathtracer_tpu_torch.diff import (Params,
+                                               make_sharded_train_step, sgd)
+    from tinypathtracer_tpu_torch.parallel import initialize, make_mesh
+
+    initialize(f"file://{tmp}/store", world, rank, device="cpu")
+    scene, cfg = _scene(lit_room), RenderConfig(**FRAME)
+    params, opt = Params.from_scene(scene), sgd(lr, momentum=momentum)
+    step = make_sharded_train_step(cfg, make_mesh(device="cpu"), opt)
+    new, state, loss = step(params, opt.init(params), scene,
+                            torch.from_numpy(target), prng_key(5))
+    torch.save({"loss": loss, "params": new.leaves(),
+                "trace": state.trace.leaves()},
+               rank_file(tmp, rank))
+    dist.destroy_process_group()

@@ -473,7 +473,7 @@ def test_physical_train_step_on_cpu():
     scene = port_scene(_scene(lights=True))
     params = inv.Params.from_scene(scene)
     step = inv.make_train_step(RenderConfig(**GRAD_SIZE, mode="physical"),
-                               lr=1e-2, device="cpu")
+                               inv.adam(1e-2), device="cpu")
     new, state, loss = step(params, inv.AdamState.init(params), scene,
                             torch.zeros(GRAD_SIZE["height"],
                                         GRAD_SIZE["width"], 3), prng_key(1))

@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 import jax
+import jax.numpy as jnp
+import optax
 import pytest
 import torch
 
@@ -24,7 +26,8 @@ from tinypathtracer_tpu.render.renderer import Renderer as JaxRenderer
 from tinypathtracer_tpu.utils import checkpoint as jckpt
 from tinypathtracer_tpu_torch import (RenderConfig, Renderer, load_pytree,
                                       prng_key, save_pytree)
-from tinypathtracer_tpu_torch.diff import AdamState, Params
+from tinypathtracer_tpu_torch.diff import (AdamState, Params, SgdState, sgd,
+                                           sgd_state_from_optax)
 from tinypathtracer_tpu_torch.render import film
 from tinypathtracer_tpu_torch.render.renderer import (prepare_state,
                                                       render_pixel_ids)
@@ -195,4 +198,49 @@ def test_jax_adam_state_checkpoint_loads(tmp_path):
     assert got.step == state.step == 3
     for a, b in zip(got.exp_avg.leaves() + got.exp_avg_sq.leaves(),
                     state.exp_avg.leaves() + state.exp_avg_sq.leaves()):
+        assert torch.equal(a, b)
+
+
+def _sgd_state(seed):
+    """(JAX Params of the lit room, an optax.sgd(lr, momentum=0.9) state
+    after two updates of numpy gradients, the port's Params)."""
+    flat = jax_scene(lights=True)
+    jparams = JaxParams.from_scene(flat)
+    opt = optax.sgd(1e-2, momentum=0.9)
+    state = opt.init(jparams)
+    rng = np.random.default_rng(seed)
+    for _ in range(2):
+        grads = jax.tree_util.tree_map(lambda x: jnp.asarray(
+            rng.standard_normal(x.shape).astype(np.float32)), jparams)
+        _, state = opt.update(grads, state, jparams)
+    return jparams, state, Params.from_scene(port_scene(flat))
+
+
+def test_sgd_state_round_trip(tmp_path):
+    """SGD's momentum state survives save_pytree / load_pytree exactly; a
+    Params file is refused for it."""
+    _, jstate, params = _sgd_state(3)
+    state = sgd_state_from_optax(jstate, params)
+    path = str(tmp_path / "sgd.npz")
+    save_pytree(path, state, meta={"step": 2})
+    got, meta = load_pytree(path, sgd(1e-2, momentum=0.9).init(params))
+    assert meta == {"step": 2} and isinstance(got, SgdState)
+    for a, b in zip(got.trace.leaves(), state.trace.leaves()):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    save_pytree(path, params)
+    with pytest.raises(ValueError, match="structure"):
+        load_pytree(path, state)
+
+
+def test_jax_sgd_state_checkpoint_loads(tmp_path):
+    """optax.sgd(lr, momentum=0.9)'s state saved by the JAX package (its
+    TraceState's leaves) loads into an SgdState: the traces
+    sgd_state_from_optax gives, bit for bit."""
+    _, jstate, params = _sgd_state(4)
+    path = str(tmp_path / "jax_sgd.npz")
+    jckpt.save_pytree(path, jstate)
+    got, _ = load_pytree(path, sgd(1e-2, momentum=0.9).init(params))
+    want = sgd_state_from_optax(jstate, params)
+    assert any(bool((t != 0).any()) for t in want.trace.leaves())
+    for a, b in zip(got.trace.leaves(), want.trace.leaves()):
         assert torch.equal(a, b)

@@ -119,13 +119,13 @@ def test_port_imports_no_jax():
         "T.prng_key(0))\n"
         "assert tuple(img.shape) == (4, 4, 3)\n"
         "import torch\n"
-        "from tinypathtracer_tpu_torch.diff import (AdamState, Params, "
+        "from tinypathtracer_tpu_torch.diff import (AdamState, Params, adam, "
         "make_train_step)\n"
         "scene = T.sphere_grid_scene(1, 4, 8)\n"
         "p = Params.from_scene(scene)\n"
         "_, _, loss = make_train_step(T.RenderConfig(width=4, height=4, "
-        "spp=1, max_depth=2), device='cpu')(p, AdamState.init(p), scene, "
-        "torch.zeros(4, 4, 3), T.prng_key(0))\n"
+        "spp=1, max_depth=2), adam(1e-2), device='cpu')(p, "
+        "AdamState.init(p), scene, torch.zeros(4, 4, 3), T.prng_key(0))\n"
         "assert bool(torch.isfinite(loss))\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n"

@@ -255,7 +255,8 @@ def test_adam_step_matches_jax(scenes):
         JaxConfig(**SIZE, megakernel=False, mega_impl="off"), optax.adam(LR))
     want, _, want_loss = jstep(jparams, jstate, flat, jnp.asarray(target),
                                jax.random.PRNGKey(8))
-    step = inv.make_train_step(RenderConfig(**SIZE), lr=LR, device="cpu")
+    step = inv.make_train_step(RenderConfig(**SIZE), inv.adam(LR),
+                               device="cpu")
     got, state2, loss = step(params, state, port_scene(flat),
                              torch.from_numpy(target), prng_key(8))
     assert state2.step == state.step + 1

@@ -302,7 +302,8 @@ def test_train_step_on_cpu():
     cfg = RenderConfig(**SIZE)
     before = (dense_hit.launches, mega_trace.launches,
               mega_trace.launches_save_hits)
-    step = inv.make_train_step(cfg, LR, project_fn=inv.project_physical,
+    step = inv.make_train_step(cfg, inv.adam(LR),
+                               project_fn=inv.project_physical,
                                device="cpu")
     new, new_state, loss = step(params, state, scene, target, prng_key(8))
     want_loss, grads = inv.loss_and_grads(params, scene, cfg, target,
@@ -326,7 +327,7 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Renderer(RenderConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        inv.make_train_step(RenderConfig())
+        inv.make_train_step(RenderConfig(), inv.adam(LR))
 
 
 def test_modular_hit_queries_are_detached():

@@ -19,7 +19,9 @@ Public API:
     Renderer(cfg, device).render(scene, key) -> image [H, W, 3]
     Renderer(cfg, device).progressive()   -> resumable ProgressiveRender
     render_aov(scene, cfg, key, kind, device="cuda") -> an AOV
-    save_pytree / load_pytree         -> Params / AdamState checkpoints
+    save_pytree / load_pytree         -> Params / optimiser state checkpoints
+    diff.make_train_step(cfg, diff.adam(lr)) -> train step (diff.sgd too)
+    python -m tinypathtracer_tpu_torch.entry [multichip N] -> entry points
     StageTimer, RenderStats, timed_render, trace_profile -> metrics
     python -m tinypathtracer_tpu_torch.tools.render_cli -> the CLI
 """

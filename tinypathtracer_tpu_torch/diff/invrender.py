@@ -9,20 +9,24 @@ paths. On the megakernel path it replays the shading alone, on the hit
 residuals the forward kernel recorded (ops/mega.py).
 
 `Params` picks out the differentiable leaves (material colors, scalar
-emissions, light intensities, env map, camera pose); `make_train_step`
-is one Adam step (`torch.optim.Adam`, optax.adam's defaults) on the MSE
-loss. The JAX package's functional signature is kept: the step takes
-and returns (params, opt_state), with the optimizer state held as
-`AdamState`, the counterpart of optax's ScaleByAdamState.
-`make_sharded_train_step` is the same step over a ("data", "sample")
-device mesh (parallel/mesh.py): pixels and samples shard over the
-ranks, the gradient is all-reduced, Adam runs on every rank.
+emissions, light intensities, env map, camera pose). `make_train_step`
+is one optimiser step on a loss (`mse_loss` by default). The optimiser
+is an `Optimizer`, the counterpart of an optax GradientTransformation:
+`adam(lr)` (`torch.optim.Adam`, state `AdamState`, optax's
+ScaleByAdamState) or `sgd(lr, momentum, nesterov)` (`torch.optim.SGD`,
+state `SgdState` or none, optax's TraceState). The JAX package's
+functional signature is kept: the step takes and returns (params,
+opt_state). `make_sharded_train_step` is the same step on the MSE loss
+over a ("data", "sample") device mesh (parallel/mesh.py): pixels and
+samples shard over the ranks, the gradient is all-reduced, the
+optimiser runs on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import functools
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -143,11 +147,14 @@ def adam_state_from_optax(state, params: Params) -> AdamState:
                      moments(state.nu))
 
 
-def adam_step(params: Params, grads: Params, state: AdamState, lr: float):
-    """One torch.optim.Adam update of params with grads from state.
-    Returns (new params, new AdamState); the inputs are not modified."""
+def adam_step(params: Params, grads: Params, state: AdamState, lr: float,
+              b1: float = ADAM_BETAS[0], b2: float = ADAM_BETAS[1],
+              eps: float = ADAM_EPS):
+    """One torch.optim.Adam update of params with grads from state
+    (optax.adam's defaults). Returns (new params, new AdamState); the
+    inputs are not modified."""
     leaves = [x.detach().clone() for x in params.leaves()]
-    opt = torch.optim.Adam(leaves, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+    opt = torch.optim.Adam(leaves, lr=lr, betas=(b1, b2), eps=eps)
     for p, g, m, v in zip(leaves, grads.leaves(), state.exp_avg.leaves(),
                           state.exp_avg_sq.leaves()):
         p.grad = g.detach()
@@ -161,28 +168,118 @@ def adam_step(params: Params, grads: Params, state: AdamState, lr: float):
         Params(*(s["exp_avg_sq"] for s in new)))
 
 
+@dataclasses.dataclass
+class SgdState:
+    """SGD's momentum state, as optax's TraceState(trace): one trace per
+    leaf."""
+
+    trace: Params
+
+    def to(self, device) -> "SgdState":
+        return SgdState(self.trace.to(device))
+
+
+def sgd_state_from_optax(state, params: Params) -> Optional[SgdState]:
+    """optax.sgd's state (the chain's tuple, or its TraceState) as an
+    SgdState on params' device; None for optax.sgd without momentum,
+    whose state holds nothing."""
+    if not hasattr(state, "trace"):
+        state = next((s for s in state if hasattr(s, "trace")), None)
+        if state is None:
+            return None
+    return SgdState(Params.from_numpy(
+        {f.name: np.asarray(getattr(state.trace, f.name))
+         for f in dataclasses.fields(Params)}, params.mtl_base_color.device))
+
+
+def _sgd_step(params: Params, grads: Params, state: Optional[SgdState],
+              lr: float, momentum: Optional[float], nesterov: bool):
+    """One torch.optim.SGD update (optax.sgd's semantics: the trace is
+    g + momentum * trace, Nesterov adds momentum * trace to g). Returns
+    (new params, new state); the inputs are not modified."""
+    leaves = [x.detach().clone() for x in params.leaves()]
+    # torch keeps no buffer at momentum 0, where optax's trace is g and
+    # its update g with or without Nesterov
+    opt = torch.optim.SGD(leaves, lr=lr, momentum=momentum or 0.0,
+                          nesterov=nesterov and bool(momentum))
+    for p, g in zip(leaves, grads.leaves()):
+        p.grad = g.detach()
+    if momentum:
+        for p, t in zip(leaves, state.trace.leaves()):
+            opt.state[p] = {"momentum_buffer": t.detach().clone()}
+    opt.step()
+    if momentum is None:
+        return Params(*leaves), None
+    trace = ([opt.state[p]["momentum_buffer"] for p in leaves] if momentum
+             else [g.detach().clone() for g in grads.leaves()])
+    return Params(*leaves), SgdState(Params(*trace))
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """A functional optimiser, the counterpart of an optax
+    GradientTransformation: `init(params) -> state` and `step(params,
+    grads, state) -> (params, state)`; neither changes its inputs. A
+    state is None or has `.to(device)`, which the train steps use to
+    move it to their device."""
+
+    init: Callable[[Params], Any]
+    step: Callable[[Params, Params, Any], tuple]
+
+
+def adam(lr: float, b1: float = ADAM_BETAS[0], b2: float = ADAM_BETAS[1],
+         eps: float = ADAM_EPS) -> Optimizer:
+    """optax.adam(lr, b1, b2, eps) through torch.optim.Adam; its state is
+    an AdamState."""
+    return Optimizer(AdamState.init, functools.partial(
+        adam_step, lr=lr, b1=b1, b2=b2, eps=eps))
+
+
+def sgd(lr: float, momentum: Optional[float] = None,
+        nesterov: bool = False) -> Optimizer:
+    """optax.sgd(lr, momentum, nesterov) through torch.optim.SGD. Without
+    momentum the state is None; with it an SgdState of zero traces to
+    start."""
+
+    def init(params: Params) -> Optional[SgdState]:
+        if momentum is None:
+            return None
+        return SgdState(Params(*(torch.zeros_like(x)
+                                 for x in params.leaves())))
+
+    return Optimizer(init, functools.partial(
+        _sgd_step, lr=lr, momentum=momentum, nesterov=nesterov))
+
+
+def _state_to(state, device):
+    return None if state is None else state.to(device)
+
+
 def loss_and_grads(params: Params, scene: FlatScene, cfg: RenderConfig,
-                   target, key):
-    """(loss, grads as Params) of mse_loss at params."""
+                   target, key, loss_fn: Callable = mse_loss):
+    """(loss, grads as Params) of loss_fn at params."""
     leaves = Params(*(x.detach().requires_grad_() for x in params.leaves()))
-    loss = mse_loss(leaves, scene, cfg, target, key)
+    loss = loss_fn(leaves, scene, cfg, target, key)
     loss.backward()
     return loss.detach(), leaves.grads()
 
 
-def make_train_step(cfg: RenderConfig, lr: float = 1e-2,
+def make_train_step(cfg: RenderConfig, optimizer: Optimizer,
+                    loss_fn: Callable = mse_loss,
                     project_fn: Optional[Callable] = None, device="cuda"):
     """Single-device train step, on the card unless device="cpu":
     (params, opt_state, scene, target, key) -> (params, opt_state, loss).
-    opt_state: an AdamState (`AdamState.init(params)` to start). The
-    inputs move to the device; the outputs live there."""
+    loss_fn(params, scene, cfg, target, key) -> scalar, as the JAX
+    package's; opt_state: `optimizer.init(params)` to start. The inputs
+    move to the device; the outputs live there."""
     dev = rend.resolve_device(device, "make_train_step")
 
     def step(params, opt_state, scene, target, key):
         params = params.to(dev)
         loss, grads = loss_and_grads(params, scene.to(dev), cfg,
-                                     target.to(dev), key.to(dev))
-        params, opt_state = adam_step(params, grads, opt_state.to(dev), lr)
+                                     target.to(dev), key.to(dev), loss_fn)
+        params, opt_state = optimizer.step(params, grads,
+                                           _state_to(opt_state, dev))
         if project_fn is not None:
             params = project_fn(params)
         return params, opt_state, loss
@@ -232,15 +329,16 @@ def sharded_loss_and_grads(params: Params, scene: FlatScene,
                               for p, g in zip(parts, grads)))
 
 
-def make_sharded_train_step(cfg: RenderConfig, mesh, lr: float = 1e-2,
+def make_sharded_train_step(cfg: RenderConfig, mesh, optimizer: Optimizer,
                             project_fn: Optional[Callable] = None):
     """Distributed train step over a ("data", "sample") mesh, on the
     mesh's device: (params, opt_state, scene, target, key) -> (params,
-    opt_state, loss), as `make_train_step`. Call on every rank with the
-    same arguments; `target` is the full [H, W, 3] image. The gradient
-    is `sharded_loss_and_grads`'s, equal on every rank, so Adam runs on
-    every rank on equal inputs and the parameters stay equal on every
-    rank. The inputs move to this rank's device."""
+    opt_state, loss), as `make_train_step` on the MSE loss. Call on
+    every rank with the same arguments; `target` is the full [H, W, 3]
+    image. The gradient is `sharded_loss_and_grads`'s, equal on every
+    rank, so the optimiser runs on every rank on equal inputs and the
+    parameters stay equal on every rank. The inputs move to this rank's
+    device."""
     sample_split(cfg, mesh)            # spp must split over "sample"
     dev = mesh_device(mesh)
 
@@ -249,7 +347,8 @@ def make_sharded_train_step(cfg: RenderConfig, mesh, lr: float = 1e-2,
         loss, grads = sharded_loss_and_grads(params, scene.to(dev), cfg,
                                              target.to(dev), key.to(dev),
                                              mesh)
-        params, opt_state = adam_step(params, grads, opt_state.to(dev), lr)
+        params, opt_state = optimizer.step(params, grads,
+                                           _state_to(opt_state, dev))
         if project_fn is not None:
             params = project_fn(params)
         return params, opt_state, loss

@@ -130,8 +130,9 @@ class TraceData:
         idx = scene.indices.long()
         fm = scene.face_mtl.long()
         f = idx.shape[0]
-        face_emission = scene.mtl_emission[fm]
-        cols = [wn[idx].reshape(f, 9), scene.mtl_base_color[fm],
+        face_emission = material_rows(scene.mtl_emission[:, None], fm)[:, 0]
+        cols = [wn[idx].reshape(f, 9),
+                material_rows(scene.mtl_base_color, fm),
                 face_emission[:, None], scene.mtl_eta[fm][:, None],
                 scene.mtl_metallic[fm][:, None]]
         tri_verts = wv[idx]
@@ -191,6 +192,16 @@ class TraceData:
     def env_tables(self) -> EnvSamplingTables:
         return EnvSamplingTables(self.env_marginal_cdf,
                                  self.env_conditional_cdf, self.env_pdf)
+
+
+def material_rows(table, fm):
+    """Each face's row of a per-material table [M, C], differentiable:
+    an embedding lookup, whose backward sums each material's face
+    cotangents in one fixed order on the CPU and on the card. The
+    backward of table[fm] is an accumulating index_put_, which the CPU
+    runs in parallel with racing adds, so a gradient could differ in its
+    last bits between two calls on the same inputs."""
+    return torch.nn.functional.embedding(fm, table)
 
 
 def gather(table, dim: int, idx):
