@@ -86,17 +86,22 @@ non-zero):
      the queries) exactly twice a frame's launches;
  12. the same frame through the modular loop on kernel A, forced through
      the pipeline state: bit-equal to the packet frame;
- 13. kernels D (tensor-core transform, both precisions) and E (staged
-     triangles) of the kernel lab against their twins and kernel A:
-     65,536 rays, a ragged batch and lab4's full shape (2**20 rays x
-     1,948 random triangles, 2,048 slots); E exact, D (each precision)
-     held to its twin's face ids and t and to kernel A's face ids by
-     LAB4_LIMITS, "highest" on >= 99.9 % of kernel A's face ids; then
-     lab4's main, the tc sweep
-     beside kernel A, launch counters zeroed before and read after;
- 14. kernel F (the stripped packet kernel), every variant against its
-     twin on 2**18 pixel8 rays of the big room, exactly; then
-     lab5_diag's main, counters zeroed before and read after;
+ 13. kernels D (tensor-core transform by wgmma, both precisions; the
+     HGMMA instructions of its SASS counted) and E (staged triangles)
+     of the kernel lab against their twins and kernel A: 65,536 rays, a
+     ragged batch and lab4's full shape (2**20 rays x 1,948 random
+     triangles, 2,048 slots); E exact, D (each precision) held to its
+     twin's face ids and t and to kernel A's face ids by LAB4_LIMITS,
+     "highest" on >= 99.9 % of kernel A's face ids; then lab4's main,
+     the tc sweep beside kernel A, launch counters zeroed before and
+     read after;
+ 14. kernel F (the stripped packet kernel, one warp a packet), every
+     variant against its twin on 2**18 pixel8 rays of the big room,
+     exactly, each variant's time logged, and a counting launch's
+     chunks visited by each packet equal to `walk`'s; boxtest, select1
+     and walk against their twins on 2**14 pixel8 rays of the large
+     scene (512 chunk boxes); then lab5_diag's main, counters zeroed
+     before and read after;
  15. the lab entry points through their public mains: lab_dense (kernel
      A on the room's 2**20 camera and first-bounce rays, the big room's
      2**20 camera rays and the large scene's 65,536: times, both bounds,
@@ -254,6 +259,9 @@ LAB4_LIMITS = {"highest": (0.999, 1e-2, 0.999),
                "default": (0.995, 1e-2, 0.9)}
 LAB4_BATCHES = (65536, 1037, 1 << 20)
 LAB_RAYS = 1 << 18
+# pixel8 rays of the large scene for kernel F (512 chunk boxes: blocks of
+# 4 warps)
+LARGE_DIAG_RAYS = 1 << 14
 ORACLE = dict(width=64, height=64, spp=4, max_depth=8)
 # a hit closer than this to its ray's origin is a self-hit: a ray grazing
 # the surface it leaves (or, on a coarse sphere, the neighbouring facet),
@@ -1253,13 +1261,18 @@ def lab4_work(n, fp, precision):
 def lab4_phase(dev):
     """Phase 13: kernels D and E against their twins and kernel A.
     Returns {name: (ms, plain ms, max |err|, bound)} at lab4's full
-    shape; D's error is max |dt| over the lanes where it and its twin
-    take the same face."""
+    shape, D's at "highest" with its "default" ms after them; D's error
+    is max |dt| over the lanes where it and its twin take the same
+    face."""
     from tinypathtracer_tpu_torch.ops import dense
     from tinypathtracer_tpu_torch.tools import lab4
 
     out = {}
     err = {"mxu": 0.0, "vpu_rol": 0.0}
+    hgmma = lab4.hgmma_count()
+    log(f"kernel D: {hgmma} HGMMA instructions in the SASS of csrc/lab4.cu")
+    if not hgmma:
+        raise AssertionError("kernel D's SASS holds no HGMMA: no wgmma")
     for n in LAB4_BATCHES:
         full = n == LAB4_BATCHES[-1]
         woop, rays, rays8 = lab4.test_data(n, LAB4_F, dev, seed=n)
@@ -1304,6 +1317,7 @@ def lab4_phase(dev):
                                   lab4_work(n, woop.n_padded, prec))
                     line += f" ({d_ms:.2f} ms, twin {d_plain:.1f} ms)"
             elif full:
+                out["mxu"] += (d_ms,)
                 line += f" ({d_ms:.2f} ms)"
         if full:
             out["vpu_rol"] = (e_ms, e_plain, err["vpu_rol"],
@@ -1316,18 +1330,24 @@ def lab4_phase(dev):
 
 def diag_phase(T, dev):
     """Phase 14: kernel F, every variant against its twin on 2**18
-    pixel8 rays of the big room. Returns (walk ms, walk twin ms, max
-    |err|, bound of the walk from its visits)."""
+    pixel8 rays of the big room, the chunks each packet visited against
+    `walk`'s, and three variants on the large scene's 512 chunk boxes.
+    Returns (walk ms, walk twin ms, max |err|, bound of the walk from its
+    visits, {variant: ms}, mean visits a packet)."""
     from tinypathtracer_tpu_torch.models.envlight import gradient_sky
     from tinypathtracer_tpu_torch.tools import common, lab5, lab5_diag as diag
 
-    scene = T.sphere_grid_scene(*BIG_ROOM, env_radiance=gradient_sky(16, 32),
-                                device=dev)
-    o, d, tv = lab5.make_rays(scene, LAB_RAYS, "pixel8")
-    n = o.shape[0]
-    rays = torch.cat([o, d, torch.ones((n, 1), device=dev),
-                      torch.zeros((n, 1), device=dev)], dim=1).contiguous()
-    planes, boxes = diag.diag_tables(tv)
+    def rays_of(grid, count):
+        scene = T.sphere_grid_scene(*grid, env_radiance=gradient_sky(16, 32),
+                                    device=dev)
+        o, d, tv = lab5.make_rays(scene, count, "pixel8")
+        m = o.shape[0]
+        return (torch.cat([o, d, torch.ones((m, 1), device=dev),
+                           torch.zeros((m, 1), device=dev)],
+                          dim=1).contiguous(), *diag.diag_tables(tv))
+
+    rays, planes, boxes = rays_of(BIG_ROOM, LAB_RAYS)
+    n = rays.shape[0]
     res = {}
     err = 0.0
     for v in diag.VARIANTS:
@@ -1343,6 +1363,18 @@ def diag_phase(T, dev):
             f"packet (twin {plain:.1f} ms)")
     r = rays.view(-1, diag.PACKET, 8)
     _, visits = diag.walk(r, planes, diag._keys(r, boxes)[2])
+    out, card_visits = diag.counted(rays, planes, boxes)
+    check_equal([out, card_visits],
+                [diag._diag_torch("walk", rays, planes, boxes), visits],
+                "kernel F counting walk vs twin and walk's visits",
+                ("out", "visits"))
+    large = rays_of(LARGE, LARGE_DIAG_RAYS)
+    for v in ("boxtest", "select1", "walk"):
+        check_equal([diag.diag_run(v, *large)], [diag._diag_torch(v, *large)],
+                    f"kernel F {v} vs twin, large scene", ("out",))
+    log(f"kernel F on the large scene ({large[0].shape[0]} pixel8 rays, "
+        f"{large[2].shape[1]} chunk boxes): boxtest, select1, walk exact; "
+        f"visits of every packet on the big room = walk's")
     c, cp = planes.shape[0] // diag.ROWS, boxes.shape[1]
     # a packet's rays share an origin: o' at least once per (distinct
     # origin, chunk)
@@ -1354,7 +1386,9 @@ def diag_phase(T, dev):
     log(f"kernel F walk: {float(visits.float().mean()):.3f} chunk visits per "
         f"packet (max {int(visits.max())}); work {ops / 1e9:.3f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB; bound {bound(ops, nbytes)}")
-    return res["walk"][0], res["walk"][1], err, bound(ops, nbytes)
+    return (res["walk"][0], res["walk"][1], err, bound(ops, nbytes),
+            {v: ms for v, (ms, _) in res.items()},
+            float(visits.float().mean()))
 
 
 def run_main(what, fn, *args):
@@ -3155,13 +3189,22 @@ def main():
             for k, row in nee_bounds["C"].items()
             for f, v in zip(("queries", "ms", "bound_ms", "bound_by"), row)}},
     ]
+    diag_ms, diag_visits = lab["diag"][4:]
+    extra = {"mxu": {"design": "wgmma TF32 from TMA-staged planes, "
+                               "3xTF32 folded into K = 16",
+                     "default_ms": lab["mxu"][4]},
+             "vpu_rol": {},
+             "diag": {"design": "one warp a packet, lanes over slots, "
+                                "TMA-staged chunks",
+                      "visits_mean": diag_visits,
+                      **{f"{v}_ms": ms for v, ms in diag_ms.items()}}}
     for name, src, line, launched in (
             ("mxu", "lab4.cu", "tools/lab4.py:60", lab4_launches["mxu"]),
             ("vpu_rol", "lab4.cu", "tools/lab4.py:140",
              lab4_launches["vpu_rol"]),
             ("diag", "lab5_diag.cu", "tools/lab5_diag.py:58",
              diag_launches["diag"])):
-        ms, plain, err, (b_ms, b_by) = lab[name]
+        ms, plain, err, (b_ms, b_by) = lab[name][:4]
         kernels.append({
             "name": {"mxu": "mxu_closest_hit",
                      "vpu_rol": "vpu_rol_closest_hit",
@@ -3169,7 +3212,7 @@ def main():
             "route": "cuda", "source": f"tinypathtracer_tpu_torch/csrc/{src}",
             "replaces": f"tinypathtracer_tpu/{line}", "launches": launched,
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None})
+            "bound_by": b_by, "library_ms": None, **extra[name]})
     log(f"physical frames (best, spread, launches of 3 frames, ms a launch): "
         f"{physical}; physical room step {step_ms:.1f} ms, "
         f"{step_peak:.2f} GiB")

@@ -41,6 +41,9 @@ torch.set_num_threads(2)
 # sphere_grid_scene(2, 10, 16): 2,316 faces, 19 chunks of 128 (walkfix
 # reads chunks 0-15)
 DIAG_GRID = (2, 10, 16)
+# sphere_grid_scene(2, 24, 48): 17,676 faces, 160 chunks, 256 chunk boxes:
+# kernel F sizes its blocks by the boxes
+DIAG_GRID_256 = (2, 24, 48)
 
 
 def _lab4_inputs(n=256, f=200, seed=0):
@@ -115,6 +118,60 @@ def test_kernel_d_twin_matches_jax():
     assert (fid1.numpy() == want_f).mean() >= 0.9
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_kernel_d_twin_matches_jax_at_each_precision(precision):
+    """Kernel D's twin, which sums each K = 8 step of the wgmma order
+    (big·small then small·big, then big·big), against
+    lab4._mxu_hit_kernel in interpret mode at the same precision, on a
+    ragged batch of 200 rays (the JAX kernel's padded to 256) and tc =
+    16: face ids equal on >= 99 % (highest) or >= 90 % (one TF32 pass),
+    t within 2e-4 at "highest" where they are; the result does not depend
+    on tc."""
+    woop, _, rays8 = _lab4_inputs(n=200, seed=5)
+    planes4 = lab4.make_planes4(woop)
+    padded = torch.nn.functional.pad(rays8, (0, 56))
+    jprec = {"highest": jax.lax.Precision.HIGHEST,
+             "default": jax.lax.Precision.DEFAULT}[precision]
+    want_t, want_f = _pallas_lab4(
+        jlab4._mxu_hit_kernel(woop.n_padded, 128, jprec), padded, planes4,
+        256)
+    want_t, want_f = np.asarray(want_t)[0, :200], np.asarray(want_f)[0, :200]
+    t, fid = lab4.mxu_closest_hit(rays8, planes4, tc=16, precision=precision)
+    assert t.shape == (200,) and fid.shape == (200,)
+    same = fid.numpy() == want_f
+    assert same.mean() >= (0.99 if precision == "highest" else 0.9)
+    if precision == "highest":
+        hit = same & (want_f >= 0)
+        np.testing.assert_allclose(t.numpy()[hit], want_t[hit], rtol=0,
+                                   atol=2e-4)
+    t2, fid2 = lab4.mxu_closest_hit(rays8, planes4, tc=woop.n_padded,
+                                    precision=precision)
+    assert torch.equal(t2, t) and torch.equal(fid2, fid)
+
+
+def test_kernel_d_twin_without_planes():
+    """No planes: every ray misses (t REAL_MAX, fid -1)."""
+    _, _, rays8 = _lab4_inputs(n=40)
+    t, fid = lab4.mxu_closest_hit(rays8, torch.zeros((0, 4)), tc=16)
+    assert (fid == -1).all() and (t == lab4.REAL_MAX).all()
+
+
+def test_lab4_variants_edit_the_kernel_source():
+    """Every design lab4 --variants builds edits text that csrc/lab4.cu
+    holds exactly once; --variants refuses the CPU."""
+    from tinypathtracer_tpu_torch.utils import cuda_build
+
+    src = (cuda_build.CSRC / "lab4.cu").read_text()
+    for name, edits in lab4.VARIANTS.items():
+        text = src
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert text != src, name
+    with pytest.raises(ValueError, match="card only"):
+        lab4.main(["--device", "cpu", "--variants"])
+
+
 def test_tf32_rounding():
     """tf32_round rounds to 10 mantissa bits, ties away from zero."""
     x = torch.tensor([1.0, 1 + 2**-11, 1 + 2**-10 + 2**-11, -(1 + 2**-11),
@@ -135,11 +192,10 @@ def test_lab4_wrappers_check_shapes():
                                  lab4.make_planesT(woop).to("meta"), tc=128)
 
 
-@pytest.fixture(scope="module")
-def diag_inputs():
-    """JAX tables of the 2,316-face scene, the port's, and 256 pixel8
+def _diag_inputs(grid):
+    """JAX tables of sphere_grid_scene(*grid), the port's, and 256 pixel8
     rays (one TN block) from the lab's own ray streams."""
-    flat = jax_scene(*DIAG_GRID)
+    flat = jax_scene(*grid)
     tv = np.array(jax.jit(JaxTraceData.from_scene)(flat).tri_verts)
     jpk = jax.jit(lambda t: jpacket.precompute_packet(t, tc=128))(
         jnp.asarray(tv))
@@ -148,6 +204,34 @@ def diag_inputs():
     rays = torch.cat([o, d, torch.ones((256, 1)), torch.zeros((256, 1))],
                      dim=1).contiguous()
     return jpk, planes, boxes, rays
+
+
+@pytest.fixture(scope="module")
+def diag_inputs():
+    """The 2,316-face scene (19 chunks, 128 boxes)."""
+    return _diag_inputs(DIAG_GRID)
+
+
+@pytest.fixture(scope="module")
+def diag_inputs_256():
+    """The 17,676-face scene (160 chunks, 256 boxes)."""
+    return _diag_inputs(DIAG_GRID_256)
+
+
+def _jax_diag(variant, rays, planes, boxes):
+    """lab5_diag.make_kernel in interpret mode on one TN block."""
+    cp = boxes.shape[1]
+    return np.asarray(pl.pallas_call(
+        jdiag.make_kernel(cp, variant), grid=(1,),
+        in_specs=[pl.BlockSpec((jdiag.TN, 8), lambda i: (i, 0)),
+                  pl.BlockSpec(tuple(planes.shape), lambda i: (0, 0)),
+                  pl.BlockSpec(tuple(boxes.shape), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((jdiag.TN, 1), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((256, 1), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((jdiag.PACKET, cp), jnp.int32),
+                        pltpu.VMEM((jdiag.PACKET, jdiag.CHUNK), jnp.float32)],
+        interpret=True)(*(jnp.asarray(x.numpy())
+                          for x in (rays, planes, boxes))))
 
 
 def test_diag_tables_match_jax(diag_inputs):
@@ -163,21 +247,10 @@ def test_kernel_f_twin_equals_jax(diag_inputs, variant):
     """Each variant of kernel F's twin equals lab5_diag.make_kernel in
     interpret mode exactly, on 256 pixel8 rays of the 19-chunk scene."""
     _, planes, boxes, rays = diag_inputs
-    cp = boxes.shape[1]
-    want = pl.pallas_call(
-        jdiag.make_kernel(cp, variant), grid=(1,),
-        in_specs=[pl.BlockSpec((jdiag.TN, 8), lambda i: (i, 0)),
-                  pl.BlockSpec(tuple(planes.shape), lambda i: (0, 0)),
-                  pl.BlockSpec(tuple(boxes.shape), lambda i: (0, 0))],
-        out_specs=pl.BlockSpec((jdiag.TN, 1), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((256, 1), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((jdiag.PACKET, cp), jnp.int32),
-                        pltpu.VMEM((jdiag.PACKET, jdiag.CHUNK), jnp.float32)],
-        interpret=True)(*(jnp.asarray(x.numpy())
-                          for x in (rays, planes, boxes)))
+    want = _jax_diag(variant, rays, planes, boxes)
     got = lab5_diag.diag_run(variant, rays, planes, boxes)
     assert got.shape == (256, 1)
-    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(got.numpy(), want)
     if variant == "walk":
         best, visits = lab5_diag.walk(rays.view(32, 8, 8), planes,
                                       lab5_diag._keys(rays.view(32, 8, 8),
@@ -185,6 +258,67 @@ def test_kernel_f_twin_equals_jax(diag_inputs, variant):
         assert torch.equal(best.reshape(256, 1), got)
         assert (visits >= 1).all() and (visits < 19).all()
         assert float((got < lab5_diag.REAL_MAX).float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("variant", [v for v in lab5_diag.VARIANTS
+                                     if v != "epilogue"])
+def test_kernel_f_twin_equals_jax_above_128_chunks(diag_inputs_256,
+                                                   variant):
+    """Each variant of kernel F's twin equals lab5_diag.make_kernel in
+    interpret mode exactly on 256 pixel8 rays of a scene of 160 chunks
+    (256 chunk boxes: the card sizes its blocks by the boxes)."""
+    jpk, planes, boxes, rays = diag_inputs_256
+    assert boxes.shape[1] == 256 and planes.shape[0] // lab5_diag.ROWS > 128
+    assert np.array_equal(np.asarray(jpk.boxes), boxes.numpy())
+    got = lab5_diag.diag_run(variant, rays, planes, boxes)
+    assert np.array_equal(got.numpy(), _jax_diag(variant, rays, planes,
+                                                  boxes))
+
+
+@pytest.mark.parametrize("scene", ["19 chunks", "160 chunks",
+                                   "160 chunks, random rays"])
+def test_kernel_f_schedule_model_equals_walk(diag_inputs, diag_inputs_256,
+                                             scene):
+    """warp_schedule, the plain model of kernel F's walk (one warp a
+    packet, lanes over slots and over chunk keys), visits on every packet
+    the chunks `walk` visits and returns its best t; `counted` on the CPU
+    is the model. Pixel8 packets share an origin (o' once a slot); random
+    rays do not."""
+    _, planes, boxes, rays = (diag_inputs if scene == "19 chunks"
+                              else diag_inputs_256)
+    if scene.endswith("random rays"):
+        rng = np.random.default_rng(7)
+        o = rng.uniform(-4.0, 4.0, (256, 3))
+        d = rng.standard_normal((256, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        rays = torch.from_numpy(np.concatenate(
+            [o, d, np.ones((256, 1)), np.zeros((256, 1))], 1).astype(
+                np.float32)).contiguous()
+    r = rays.view(32, 8, 8)
+    best, visits = lab5_diag.walk(r, planes, lab5_diag._keys(r, boxes)[2])
+    m_best, m_visits, one = lab5_diag.warp_schedule(rays, planes, boxes)
+    assert torch.equal(m_visits, visits) and torch.equal(m_best, best)
+    assert bool(one.all()) != scene.endswith("random rays")
+    assert (visits >= 1).any() and int(visits.max()) < planes.shape[0] // 16
+    out, c_visits = lab5_diag.counted(rays, planes, boxes)
+    assert torch.equal(c_visits, visits)
+    assert torch.equal(out, lab5_diag.diag_run("walk", rays, planes, boxes))
+
+
+def test_kernel_f_builds_edit_the_kernel_source():
+    """Every design lab5_diag --variants builds edits text that
+    csrc/lab5_diag.cu holds exactly once; --variants refuses the CPU."""
+    from tinypathtracer_tpu_torch.utils import cuda_build
+
+    src = (cuda_build.CSRC / "lab5_diag.cu").read_text()
+    for name, edits in lab5_diag.BUILDS.items():
+        text = src
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert text != src, name
+    with pytest.raises(ValueError, match="card only"):
+        lab5_diag.main(["--device", "cpu", "--variants"])
 
 
 def test_kernel_f_epilogue_and_checks(diag_inputs):

@@ -5,26 +5,40 @@ beside the production dense kernel (kernel A). Port of
 
 The TPU question was whether moving the transform's multiply-adds to the
 matrix unit frees the vector unit for the epilogue. Here kernel D runs
-them as mma.sync TF32 products (csrc/lab4.cu) and kernel E as plain
-fp32 from a shared-memory tile that every thread of a block reads
-(a broadcast). `tc` is the lab's sweep parameter: triangles per staged
-tile.
+them as wgmma TF32 products from TMA-staged shared memory
+(csrc/lab4.cu) and kernel E as plain fp32 from a shared-memory tile that
+every thread of a block reads (a broadcast). `tc` is the lab's sweep
+parameter: triangles per staged tile.
 
 Precision of kernel D, per instance (not the TPU's: its DEFAULT is one
-bf16 pass): "highest" splits each operand into two TF32 parts, the
-products small·big + big·small + big·big (3xTF32, the card's nearest to
-fp32); "default" is one TF32 pass. Operands are rounded to TF32 as
+bf16 pass): "highest" splits each operand into two TF32 parts, a = big +
+small, and sums big·small + small·big in one K = 8 step, then big·big in
+a second (3xTF32, the card's nearest to fp32); "default" is the big·big
+step alone, one TF32 pass. Operands are rounded to TF32 as
 `cvt.rna.tf32.f32` rounds (to nearest, ties away from zero). The twin
-`_mxu_torch` emulates each instance with those roundings, exact
-products and fp32 sums in the order k = 0..3 per product, then the
-accumulator; the tensor cores' own order of accumulation is not fixed,
-so kernel D is held to its twin and to kernel A by tolerance and by the
-share of agreeing face ids. Kernel E's arithmetic is kernel A's (the
-fused multiply-adds where XLA:CPU fuses the JAX kernel, measured): E
-equals its twin `_vpu_rol_torch` and kernel A exactly.
+`_mxu_torch` emulates each instance with those roundings, exact products
+and fp32 sums: the 8 products of a step in the order k = 0..3 of
+big_a·small_b, then k = 0..3 of small_a·big_b, the step's sum then added
+to the accumulator. The tensor cores' own order of accumulation inside a
+step is not specified, and kernel D's t = -o'z / d'z is the fast divide
+(within 2 ulp; the twin's is IEEE), so kernel D is held to its twin and
+to kernel A by tolerance and by the share of agreeing face ids. Kernel
+E's arithmetic is kernel A's (the fused multiply-adds where XLA:CPU
+fuses the JAX kernel, measured): E equals its twin `_vpu_rol_torch` and
+kernel A exactly.
+
+With --variants (on the card only) it times instead the designs kernel D
+did not keep, each a build of csrc/lab4.cu with the edits VARIANTS lists
+("mma_sync": the v1 design, mma.sync.m16n8k4 from registers, with or
+without the fast divide; "ieee_divide"; the others change the block's
+warpgroups, ray groups or accumulator sets; "no_epilogue", timing only,
+runs the products without the epilogue), in turns with the kernel, at
+both precisions and every tc of the sweep, each build's face ids held
+to the kernel's twin. `hgmma_count` compiles the source to a cubin and
+counts the HGMMA instructions of its SASS (cuobjdump).
 
 Usage: python -m tinypathtracer_tpu_torch.tools.lab4 [--device cuda|cpu]
-       [--n 1048576] [--f 1948]
+       [--n 1048576] [--f 1948] [--reps 10] [--variants]
 """
 
 from __future__ import annotations
@@ -32,6 +46,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import os
+import subprocess
 
 import numpy as np
 import torch
@@ -46,6 +62,158 @@ PRECISIONS = {"highest": 1, "default": 0}
 _I32_MAX = 2**31 - 1
 # (ray, triangle) pairs per tile of the plain twins: bounds their memory
 _TILE_PAIRS = 1 << 21
+# tc of the sweep (main, --variants)
+SWEEP_TC = (256, 512, 1024)
+
+# The v1 design of kernel D: per 16 x 8 tile six mma.sync.m16n8k4
+# products (x, y, z of o' and d'), 18 at "highest" (small·big, big·small,
+# big·big), A fragments split from a tile staged by a plain load loop
+_V1 = """// The v1 design: mma.sync.m16n8k4 TF32, 32 rays a warp.
+__device__ __forceinline__ void v1_split(float x, bool highest, uint32_t& big,
+                                         uint32_t& small) {
+  big = tf32(x);
+  small = highest ? tf32(x - __uint_as_float(big)) : 0u;
+}
+
+__device__ __forceinline__ void v1_mma(float acc[4], uint32_t a0, uint32_t a1,
+                                       uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    v1_mxu_hit_kernel(const float* __restrict__ rays8,
+                      const float* __restrict__ planes4, int n, int fp,
+                      int tc, int highest, float* __restrict__ t_out,
+                      int* __restrict__ fid_out) {
+  extern __shared__ float4 smem4[];
+  float* sp = reinterpret_cast<float*>(smem4);  // [3][tc][4]
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int warp_ray0 = blockIdx.x * kThreads + (threadIdx.x >> 5) * 32;
+  uint32_t bo[4][2], bd[4][2];
+  float best_t[4][2];
+  int best_i[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = warp_ray0 + 8 * j + g;
+    const float o = r < n ? rays8[(size_t)q * n + r] : 0.f;
+    const float d = r < n ? rays8[(size_t)(4 + q) * n + r] : 0.f;
+    v1_split(o, highest, bo[j][0], bo[j][1]);
+    v1_split(d, highest, bd[j][0], bd[j][1]);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      best_t[j][c] = tpt::kRealMax;
+      best_i[j][c] = 0;
+    }
+  }
+  for (int base = 0; base < fp; base += tc) {
+    stage(planes4, fp, base, tc, 3, sp);
+    for (int g0 = 0; g0 < tc; g0 += 16) {
+      uint32_t a[3][2][2];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          v1_split(sp[(c * tc + g0 + g + 8 * h) * 4 + q], highest,
+                   a[c][h][0], a[c][h][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float acc[6][4];
+#pragma unroll
+        for (int m = 0; m < 6; ++m) {
+          const int c = m % 3;
+          const uint32_t* b = m < 3 ? bo[j] : bd[j];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
+          if (highest) {
+            v1_mma(acc[m], a[c][0][1], a[c][1][1], b[0]);
+            v1_mma(acc[m], a[c][0][0], a[c][1][0], b[1]);
+          }
+          v1_mma(acc[m], a[c][0][0], a[c][1][0], b[0]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float t = -acc[2][e] / acc[5][e];
+          const float u = fmaf(t, acc[3][e], acc[0][e]);
+          const float v = fmaf(t, acc[4][e], acc[1][e]);
+          const bool ok = (u >= 0.f) & (v >= 0.f) & (u + v <= 1.f) &
+                          (t > tpt::kDelta);
+          const int col = e & 1;
+          if (ok && t < best_t[j][col]) {
+            best_t[j][col] = t;
+            best_i[j][col] = base + g0 + g + 8 * (e >> 1);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int col = 0; col < 2; ++col) {
+      float bt = best_t[j][col];
+      int bi = best_i[j][col];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        const float ot = __shfl_xor_sync(0xffffffffu, bt, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (ot < bt || (ot == bt && oi < bi)) {
+          bt = ot;
+          bi = oi;
+        }
+      }
+      const int r = warp_ray0 + 8 * j + 2 * q + col;
+      if (g == 0 && r < n) {
+        t_out[r] = bt;
+        fid_out[r] = bt >= tpt::kRealMax ? -1 : bi;
+      }
+    }
+}
+
+"""
+_LAUNCH_HEAD = ("  const cudaStream_t st = "
+                "static_cast<cudaStream_t>(stream);\n")
+
+
+def _knob(name, old, new):
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+# The v1 kernel in place of the kernel
+_V1_EDITS = [
+    ("}  // namespace", _V1 + "}  // namespace"),
+    (_LAUNCH_HEAD, _LAUNCH_HEAD
+     + "  v1_mxu_hit_kernel<<<(n + kThreads - 1) / kThreads, kThreads, "
+       "48 * tc, st>>>(\n      rays8, planes4, n, fp, tc, precision, t, "
+       "fid);\n  return static_cast<int>(cudaGetLastError());\n")]
+# The designs kernel D did not keep: edits (text, replacement) of
+# csrc/lab4.cu, each text found exactly once.
+VARIANTS = {
+    "mma_sync": _V1_EDITS,
+    # the v1 design with the fast divide: what the divide alone buys it
+    "mma_sync_fast_divide": _V1_EDITS + [
+        ("          const float t = -acc[2][e] / acc[5][e];\n",
+         "          const float t = __fdividef(-acc[2][e], acc[5][e]);\n")],
+    "ieee_divide": [("__fdividef(-acc[2][e], acc[2][e + 1])",
+                     "-acc[2][e] / acc[2][e + 1]")],
+    "warpgroups3_groups4": [_knob("kWarpgroups", 2, 3),
+                            _knob("kGroups", 8, 4)],
+    "groups4": [_knob("kGroups", 8, 4)],
+    "warpgroups4_groups2": [_knob("kWarpgroups", 2, 4),
+                            _knob("kGroups", 8, 2)],
+    "groups6": [_knob("kGroups", 8, 6)],
+    "buffers3_groups6": [_knob("kBuffers", 2, 3), _knob("kGroups", 8, 6)],
+    "buffers3_groups4": [_knob("kBuffers", 2, 3), _knob("kGroups", 8, 4)],
+    # timing only: the products alone, no epilogue
+    "no_epilogue": [("      epilogue(acc[g % kBuffers], row0, g, b);\n",
+                     "      b.t[g][0] = fminf(b.t[g][0], "
+                     "acc[g % kBuffers][2][g]);\n")],
+}
+# builds whose outputs are not the kernel's
+TIMING_ONLY = ("no_epilogue",)
 
 
 def make_planes4(woop) -> torch.Tensor:
@@ -88,7 +256,7 @@ def _scan(rays8, fp, tile_fn):
     D's arithmetic: tile_fn(rs, f0, f1) -> (t, u, v) [R, f1 - f0] of the
     rays rs."""
     n = rays8.shape[1]
-    tf = min(fp, 2048)
+    tf = max(1, min(fp, 2048))
     tn = max(1, _TILE_PAIRS // tf)
     best_t = torch.full((n,), REAL_MAX, device=rays8.device)
     best_i = torch.zeros((n,), dtype=torch.int32, device=rays8.device)
@@ -124,11 +292,12 @@ def _split(x, highest: bool):
     return big, (tf32_round(x - big) if highest else torch.zeros_like(x))
 
 
-def _mma(acc, a, b):
-    """acc + sum_k a[k] b[k] in fp32, k = 0..3 first, then the
-    accumulator; TF32 products are exact in fp32."""
+def _step(acc, a, b):
+    """acc + sum_k a[k] b[k] in fp32: one K = 8 step, its products summed
+    in order first, then the accumulator; TF32 products are exact in
+    fp32 (the step's products of zero rows are left out: they add 0)."""
     s = a[0] * b[0]
-    for k in range(1, 4):
+    for k in range(1, len(a)):
         s = s + a[k] * b[k]
     return s + acc
 
@@ -144,14 +313,14 @@ def _mxu_torch(rays8, planes4, tc: int = 512, precision: str = "highest"):
           for k in range(4)] for c in range(3)]
 
     def product(rs, cols, ray):
-        """One component of o' or d' [R, T]: the kernel's mma sequence."""
+        """One component of o' or d' [R, T]: the kernel's wgmma steps,
+        [a_big | a_small] . [b_small; b_big], then . [b_big; 0]."""
         a_big, a_small = [c[0] for c in cols], [c[1] for c in cols]
         r_big, r_small = [r[0][rs] for r in ray], [r[1][rs] for r in ray]
         acc = 0.0
         if highest:
-            acc = _mma(acc, a_small, r_big)
-            acc = _mma(acc, a_big, r_small)
-        return _mma(acc, a_big, r_big)
+            acc = _step(acc, a_big + a_small, r_small + r_big)
+        return _step(acc, a_big, r_big)
 
     def tile(rs, f0, f1):
         pc = [[(pk[0][:, f0:f1], pk[1][:, f0:f1]) for pk in comp]
@@ -166,9 +335,12 @@ def _mxu_torch(rays8, planes4, tc: int = 512, precision: str = "highest"):
 
 @functools.cache
 def _lib():
-    lib = cuda_build.load_library("lab4")
+    return _bind(cuda_build.load_library("lab4"))
+
+
+def _bind(lib):
     lib.tpt_mxu_hit.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 3
+        + [ctypes.c_void_p] * 4
     lib.tpt_mxu_hit.restype = ctypes.c_int
     lib.tpt_vpu_rol_hit.argtypes = [ctypes.c_void_p] * 2 \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
@@ -176,10 +348,46 @@ def _lib():
     return lib
 
 
+def hgmma_count(source=None) -> int:
+    """HGMMA instructions in the SASS of csrc/lab4.cu (or of the CUDA
+    source `source`) compiled with the kernels' flags to a cubin, read by
+    cuobjdump beside nvcc: kernel D issues wgmma."""
+    src = source or cuda_build.CSRC / "lab4.cu"
+    cubin = cuda_build.BUILD_DIR / f"{os.path.basename(src)}.cubin"
+    cuda_build.BUILD_DIR.mkdir(exist_ok=True)
+    flags = [f for f in cuda_build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([cuda_build._nvcc(), *flags, f"-I{cuda_build.CSRC}",
+                    "-cubin", "-o", str(cubin), str(src)], check=True,
+                   capture_output=True)
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def _outputs(rays8):
     n = rays8.shape[1]
     return (torch.empty((n,), dtype=torch.float32, device=rays8.device),
             torch.empty((n,), dtype=torch.int32, device=rays8.device))
+
+
+def _mxu_cuda(rays8, planes4, tc, precision, lib=None):
+    """Kernel D (or the build `lib`) on CUDA tensors: (t, fid). The
+    planes are split into a scratch tensor first, in the same stream."""
+    fp = _check(rays8, planes4, 3, tc, "mxu_closest_hit")
+    cuda_build.check_operands(rays8, planes4)
+    t, fid = _outputs(rays8)
+    if rays8.shape[1]:
+        scratch = torch.empty((24 * fp,), dtype=torch.float32,
+                              device=rays8.device)
+        status = (lib or _lib()).tpt_mxu_hit(
+            rays8.data_ptr(), planes4.data_ptr(), rays8.shape[1], fp, tc,
+            PRECISIONS[precision], t.data_ptr(), fid.data_ptr(),
+            scratch.data_ptr(), cuda_build.stream_ptr(rays8.device))
+        cuda_build.check_launch(status, "mxu_closest_hit")
+    return t, fid
 
 
 def mxu_closest_hit(rays8, planes4, tc: int = 512,
@@ -196,14 +404,8 @@ def mxu_closest_hit(rays8, planes4, tc: int = 512,
         return _mxu_torch(rays8, planes4, tc, precision)
     if rays8.device.type != "cuda":
         raise ValueError(f"mxu_closest_hit has no kernel for {rays8.device}")
-    cuda_build.check_operands(rays8, planes4)
-    t, fid = _outputs(rays8)
+    t, fid = _mxu_cuda(rays8, planes4, tc, precision)
     if rays8.shape[1]:
-        status = _lib().tpt_mxu_hit(
-            rays8.data_ptr(), planes4.data_ptr(), rays8.shape[1], fp, tc,
-            PRECISIONS[precision], t.data_ptr(), fid.data_ptr(),
-            cuda_build.stream_ptr(rays8.device))
-        cuda_build.check_launch(status, "mxu_closest_hit")
         mxu_closest_hit.launches += 1
     return t, fid
 
@@ -313,20 +515,73 @@ def baseline_rate(n=1 << 20, f=1948, dev=torch.device("cuda"), reps=10):
                  woop.n_padded, dev, reps)
 
 
+def time_variants(n, f, dev, reps):
+    """--variants: every VARIANTS build of kernel D (and the kernel's own
+    source, rebuilt with -Xptxas -v) at both precisions and each tc of
+    the sweep: face ids against the twin's on the first 4,096 rays, then
+    the times in turns (the kernel, each build, then the same in reverse
+    order). Returns {"<build>.<precision>.tc<tc>_ms": [ms, ms], ...} with
+    each build's ptxas lines and HGMMA count."""
+    libs = cuda_build.build_variants("lab4", {"kernel": [], **VARIANTS},
+                                     _bind, flags=("-Xptxas", "-v"))
+    res = {}
+    for name in libs:
+        res[f"{name}.ptxas"] = cuda_build.variant_resources("lab4", name)
+        res[f"{name}.hgmma"] = hgmma_count(
+            cuda_build.BUILD_DIR / "variants" / f"lab4_{name}.cu")
+        print(json.dumps({k: v for k, v in res.items()
+                          if k.startswith(f"{name}.")}), flush=True)
+    builds = {"kernel": _lib(),
+              **{k: v for k, v in libs.items() if k != "kernel"}}
+    woop, _, rays8 = test_data(n, f, dev)
+    planes4 = make_planes4(woop)
+    few = rays8[:, :4096].contiguous()
+    for prec in PRECISIONS:
+        _, want = _mxu_torch(few, planes4, precision=prec)
+        for tc in SWEEP_TC:
+            for name, lib in builds.items():
+                if name in TIMING_ONLY:
+                    continue
+                share = float((_mxu_cuda(few, planes4, tc, prec, lib)[1]
+                               == want).float().mean())
+                if share < 0.999 - 0.004 * (prec == "default"):
+                    raise AssertionError(f"build {name} {prec} tc {tc}: "
+                                         f"face ids = twin's on {share}")
+            key = f"{prec}.tc{tc}_ms"
+            for name in list(builds) + list(builds)[::-1]:
+                res.setdefault(f"{name}.{key}", []).append(common.timed_ms(
+                    functools.partial(_mxu_cuda, rays8, planes4, tc, prec,
+                                      builds[name]), dev, reps))
+            print(json.dumps({k: v for k, v in res.items()
+                              if k.endswith(key)}), flush=True)
+    return res
+
+
 def main(argv=None):
     ap = common.parser(__doc__)
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--f", type=int, default=1948)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--variants", action="store_true",
+                    help="time the builds VARIANTS lists (card only)")
     args, dev = common.parse(ap, argv, "lab4")
+    if args.variants and dev.type != "cuda":
+        raise ValueError("--variants builds kernel D's designs: card only")
+    if args.variants:
+        res = {"device": common.device_name(dev), "n_rays": args.n,
+               **time_variants(args.n, args.f, dev, args.reps)}
+        print(json.dumps(res, indent=2), flush=True)
+        return res
     kw = dict(n=args.n, f=args.f, dev=dev, reps=args.reps)
     print("correctness (vs production dense kernel):", flush=True)
     check_correctness(min(args.n, 4096), args.f, dev)
     res = {"device": common.device_name(dev), "n_rays": args.n}
+    if dev.type == "cuda":
+        res["hgmma"] = hgmma_count()
     t, rate = baseline_rate(**kw)
     res["baseline_1Mx2048_ms"] = t
     res["baseline_gpairs_per_s"] = rate / 1e9
-    for tc in (256, 512, 1024):
+    for tc in SWEEP_TC:
         t, rate = mxu_rate(tc=tc, **kw)
         res[f"mxu_tc{tc}_highest_ms"] = t
         res[f"mxu_tc{tc}_highest_gpairs_per_s"] = rate / 1e9

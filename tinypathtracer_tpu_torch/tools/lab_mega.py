@@ -61,7 +61,6 @@ import ctypes
 import dataclasses
 import functools
 import json
-import subprocess
 
 import torch
 
@@ -328,32 +327,9 @@ def measure(ops, depth, n_lights, dev, reps):
 
 @functools.cache
 def build_variants():
-    """{name: library} of every VARIANTS build of csrc/mega.cu, compiled
-    at once (one nvcc each) under _build/variants/."""
-    src = (cuda_build.CSRC / "mega.cu").read_text()
-    out = cuda_build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise ValueError(f"variant {name}: {old!r} is not in "
-                                 "csrc/mega.cu exactly once")
-            text = text.replace(old, new)
-        (out / f"mega_{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-             f"-I{cuda_build.CSRC}", "-o", str(out / f"libmega_{name}.so"),
-             str(out / f"mega_{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
-        libs[name] = mega._bind(ctypes.CDLL(str(out / f"libmega_{name}.so")))
-    return libs
+    """{name: library} of every VARIANTS build of csrc/mega.cu
+    (cuda_build.build_variants)."""
+    return cuda_build.build_variants("mega", VARIANTS, mega._bind)
 
 
 def run_lib(lib, ops, depth, n_lights, save_hits, blocks=0):

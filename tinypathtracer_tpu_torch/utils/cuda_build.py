@@ -76,6 +76,48 @@ def build_libraries(names) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def build_variants(name: str, variants, bind=lambda lib: lib,
+                   flags=()) -> dict:
+    """{variant: bind(library)} of builds of `csrc/<name>.cu` with the
+    text edits `variants` lists ({variant: [(text, replacement), ...]},
+    each text found in the source exactly once), compiled at once (one
+    nvcc each) under `_build/variants/`; nvcc's messages (with `flags`
+    such as `-Xptxas -v`) go to `<name>_<variant>.log` there. The labs'
+    `--variants` builds."""
+    src = (CSRC / f"{name}.cu").read_text()
+    out = BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for var, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise ValueError(f"variant {var}: {old!r} is not in "
+                                 f"csrc/{name}.cu exactly once")
+            text = text.replace(old, new)
+        (out / f"{name}_{var}.cu").write_text(text)
+        procs[var] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *flags, f"-I{CSRC}", "-o",
+             str(out / f"lib{name}_{var}.so"), str(out / f"{name}_{var}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for var, proc in procs.items():
+        log, _ = proc.communicate()
+        (out / f"{name}_{var}.log").write_text(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {var}:\n{log}")
+        libs[var] = bind(ctypes.CDLL(str(out / f"lib{name}_{var}.so")))
+    return libs
+
+
+def variant_resources(name: str, variant: str) -> list:
+    """The register and spill lines nvcc's `-Xptxas -v` wrote for a
+    build_variants build."""
+    log = (BUILD_DIR / "variants" / f"{name}_{variant}.log").read_text()
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (once per source hash) and load `csrc/<name>.cu`."""
