@@ -87,14 +87,16 @@ non-zero):
  12. the same frame through the modular loop on kernel A, forced through
      the pipeline state: bit-equal to the packet frame;
  13. kernels D (tensor-core transform by wgmma, both precisions; the
-     HGMMA instructions of its SASS counted) and E (staged triangles)
-     of the kernel lab against their twins and kernel A: 65,536 rays, a
-     ragged batch and lab4's full shape (2**20 rays x 1,948 random
-     triangles, 2,048 slots); E exact, D (each precision) held to its
-     twin's face ids and t and to kernel A's face ids by LAB4_LIMITS,
-     "highest" on >= 99.9 % of kernel A's face ids; then lab4's main,
-     the tc sweep beside kernel A, launch counters zeroed before and
-     read after;
+     HGMMA instructions of its SASS counted) and E (the z-row cull and
+     compacted exact tests; the SASS of its fast-path and survivor loops
+     counted) of the kernel lab against their twins and kernel A: 65,536
+     rays, a ragged batch and lab4's full shape (2**20 rays x 1,948
+     random triangles, 2,048 slots); E exact, and its counting launch's
+     survivors and batches of every warp equal to the plain model's
+     (lab4.vpu_rol_schedule); D (each precision) held to its twin's face
+     ids and t and to kernel A's face ids by LAB4_LIMITS, "highest" on
+     >= 99.9 % of kernel A's face ids; then lab4's main, the tc sweep
+     beside kernel A, launch counters zeroed before and read after;
  14. kernel F (the stripped packet kernel, one warp a packet), every
      variant against its twin on 2**18 pixel8 rays of the big room,
      exactly, each variant's time logged, and a counting launch's
@@ -258,6 +260,9 @@ LAB4_F = 1948                # lab4's triangles (2,048 slots)
 LAB4_LIMITS = {"highest": (0.999, 1e-2, 0.999),
                "default": (0.995, 1e-2, 0.9)}
 LAB4_BATCHES = (65536, 1037, 1 << 20)
+# where kernel E's counting launch is held to the plain model (ragged and
+# full; the model takes seconds a call, whatever the rays)
+LAB4_COUNTED = (1037, 1 << 20)
 LAB_RAYS = 1 << 18
 # pixel8 rays of the large scene for kernel F (512 chunk boxes: blocks of
 # 4 warps)
@@ -1237,16 +1242,16 @@ def compare_images(a, b):
             float(diff.mean()))
 
 
-def lab4_work(n, fp, precision):
-    """(ms of the least time, bound_by) of the closest hit of n rays x fp
-    slots: the transform on the tensor cores (3 TF32 passes for
-    "highest", 1 for "default"; None: fp32 on the CUDA cores, kernel E),
-    the rest on the CUDA cores; rays8 and the planes read once, (t, fid)
-    written."""
+def lab4_work(n, faces, precision):
+    """(ms of the least time, bound_by) of the closest hit of n rays x
+    `faces` triangles (padding slots need no work): the transform on the
+    tensor cores (3 TF32 passes for "highest", 1 for "default"; None:
+    fp32 on the CUDA cores, kernel E), the rest on the CUDA cores; rays8
+    and the faces' planes read once, (t, fid) written."""
     from tinypathtracer_tpu_torch.tools import common
 
-    pairs = n * fp                  # lab4's rays: each from its own origin
-    nbytes = n * (32 + 8) + fp * 48
+    pairs = n * faces               # lab4's rays: each from its own origin
+    nbytes = n * (32 + 8) + faces * 48
     if precision is None:
         return bound(common.pair_ops(pairs, pairs), nbytes)
     passes = 3 if precision == "highest" else 1
@@ -1259,11 +1264,12 @@ def lab4_work(n, fp, precision):
 
 
 def lab4_phase(dev):
-    """Phase 13: kernels D and E against their twins and kernel A.
+    """Phase 13: kernels D and E against their twins and kernel A, and
+    E's counting launch against the plain model of its cull and queue.
     Returns {name: (ms, plain ms, max |err|, bound)} at lab4's full
-    shape, D's at "highest" with its "default" ms after them; D's error
-    is max |dt| over the lanes where it and its twin take the same
-    face."""
+    shape, D's at "highest" with its "default" ms after them, E's with a
+    dict of its design's readings; D's error is max |dt| over the lanes
+    where it and its twin take the same face."""
     from tinypathtracer_tpu_torch.ops import dense
     from tinypathtracer_tpu_torch.tools import lab4
 
@@ -1273,6 +1279,11 @@ def lab4_phase(dev):
     log(f"kernel D: {hgmma} HGMMA instructions in the SASS of csrc/lab4.cu")
     if not hgmma:
         raise AssertionError("kernel D's SASS holds no HGMMA: no wgmma")
+    sass = lab4.vpu_rol_sass()
+    log(f"kernel E: SASS instructions of the fast path {sass['slot']} a "
+        f"slot ({sass['pair']} a pair), of the survivor loop "
+        f"{sass['batch']} a batch ({lab4.E_BATCH // 32} survivors a lane); "
+        f"loops [first, last, instructions, divides]: {sass['loops']}")
     for n in LAB4_BATCHES:
         full = n == LAB4_BATCHES[-1]
         woop, rays, rays8 = lab4.test_data(n, LAB4_F, dev, seed=n)
@@ -1290,6 +1301,21 @@ def lab4_phase(dev):
         line = (f"kernels D, E vs twins and kernel A, {n} rays x "
                 f"{woop.n_padded} slots: E exact (hit share "
                 f"{float(hit.float().mean()):.4f})")
+        if n in LAB4_COUNTED:
+            t0 = time.perf_counter()
+            model = lab4.vpu_rol_schedule(rays8, planesT)
+            model_s = time.perf_counter() - t0
+            card = lab4.counted(rays8, planesT)
+            check_equal(card, model, f"kernel E's counting launch vs the "
+                        f"model, {n} rays",
+                        ("t", "fid", "survivors", "batches"))
+            survivors, batches = int(card[2].sum()), int(card[3].sum())
+            share = survivors / (n * LAB4_F)
+            line += (f"; E's counts = the model's on all {card[2].shape[0]} "
+                     f"warps ({model_s:.1f} s): survivor share {share:.5f} "
+                     f"of the real pairs, {batches} batches, "
+                     f"{survivors / (lab4.E_BATCH * max(batches, 1)):.4f} "
+                     "full")
         for prec in ("highest", "default"):
             d_ms, (td, fd) = cuda_ms(lambda: lab4.mxu_closest_hit(
                 rays8, planes4, precision=prec), 5)
@@ -1314,16 +1340,23 @@ def lab4_phase(dev):
                 err["mxu"] = max(err["mxu"], twin_dt)
                 if full:
                     out["mxu"] = (d_ms, d_plain, err["mxu"],
-                                  lab4_work(n, woop.n_padded, prec))
+                                  lab4_work(n, LAB4_F, prec))
                     line += f" ({d_ms:.2f} ms, twin {d_plain:.1f} ms)"
             elif full:
                 out["mxu"] += (d_ms,)
                 line += f" ({d_ms:.2f} ms)"
         if full:
-            out["vpu_rol"] = (e_ms, e_plain, err["vpu_rol"],
-                              lab4_work(n, woop.n_padded, None))
-            line += (f"; E {e_ms:.2f} ms (twin {e_plain:.1f} ms), kernel A "
-                     f"{a_ms:.2f} ms")
+            e_bound = lab4_work(n, LAB4_F, None)
+            out["vpu_rol"] = (e_ms, e_plain, err["vpu_rol"], e_bound, {
+                "design": "z-row cull, survivors compacted into full warps "
+                          "of the exact test; 256 threads x 4 rays, "
+                          "TMA-staged ring",
+                "kernel_a_ms": a_ms, "survivor_share": share,
+                "batches": batches, "sass_slot": sass["slot"],
+                "sass_pair": sass["pair"], "sass_batch": sass["batch"]})
+            line += (f"; E {e_ms:.3f} ms (twin {e_plain:.1f} ms, bound "
+                     f"{e_bound[0]:.3f} ms, {e_bound[0] / e_ms:.1%} of it), "
+                     f"kernel A {a_ms:.3f} ms")
         log(line)
     return out
 
@@ -3031,6 +3064,7 @@ def main():
 
     lab = lab4_phase(dev)
     lab4_launches = run_main("lab4 main", lab4.main, [])
+    phase_done("phase 13")
     lab["diag"] = diag_phase(T, dev)
     diag_launches = run_main("lab5_diag main", lab5_diag.main, [])
     if not (lab4_launches["mxu"] and lab4_launches["vpu_rol"]
@@ -3051,7 +3085,7 @@ def main():
     run_main("lab6 main", lab6.main, [])
     run_main("profile_stages main", profile_stages.main, [])
 
-    phase_done("phases 13-15")
+    phase_done("phases 14-15")
 
     # ---- 16. the oracle routes ---------------------------------------------
     oracle_phase(T, host_room, dev)
@@ -3193,7 +3227,7 @@ def main():
     extra = {"mxu": {"design": "wgmma TF32 from TMA-staged planes, "
                                "3xTF32 folded into K = 16",
                      "default_ms": lab["mxu"][4]},
-             "vpu_rol": {},
+             "vpu_rol": lab["vpu_rol"][4],
              "diag": {"design": "one warp a packet, lanes over slots, "
                                 "TMA-staged chunks",
                       "visits_mean": diag_visits,

@@ -157,12 +157,16 @@ def test_kernel_d_twin_without_planes():
 
 
 def test_lab4_variants_edit_the_kernel_source():
-    """Every design lab4 --variants builds edits text that csrc/lab4.cu
-    holds exactly once; --variants refuses the CPU."""
+    """Every design lab4 --variants builds, kernel D's and kernel E's,
+    edits text that csrc/lab4.cu holds exactly once; --variants refuses
+    the CPU."""
     from tinypathtracer_tpu_torch.utils import cuda_build
 
     src = (cuda_build.CSRC / "lab4.cu").read_text()
-    for name, edits in lab4.VARIANTS.items():
+    assert {"e_thread_per_ray", "e_rays4_ring",
+            "e_cull_branch"} <= set(lab4.E_VARIANTS)
+    assert not set(lab4.VARIANTS) & set(lab4.E_VARIANTS)
+    for name, edits in {**lab4.VARIANTS, **lab4.E_VARIANTS}.items():
         text = src
         for old, new in edits:
             assert text.count(old) == 1, (name, old)
@@ -363,7 +367,8 @@ MAINS = {
              ["baseline_1Mx2048_ms", "baseline_gpairs_per_s",
               "mxu_tc256_highest_ms", "mxu_tc1024_highest_gpairs_per_s",
               "mxu_tc512_default_ms", "vpu_rol_tc256_ms",
-              "vpu_rol_tc512_gpairs_per_s"]),
+              "vpu_rol_tc512_gpairs_per_s", "vpu_rol_tc1024_ms",
+              "vpu_rol_survivor_share", "vpu_rol_batch_fill"]),
     "lab5": (lab5, ["--n", "256", "--scenes", "room"], []),
     "lab5_diag": (lab5_diag, ["--n", "256", "--n-lat", "10", "--n-lon", "16"],
                   [f"{v}_{s}" for v in lab5_diag.VARIANTS

@@ -43,12 +43,35 @@
 // 700 W: 2.73 ms "highest", 2.14 "default", against 3.66 and 3.20 for the
 // v1 mma.sync kernel in the same call (lab4 --variants).
 //
-// Kernel E: one thread per ray; every thread of the block reads the same
-// staged triangle, a shared-memory broadcast (the GPU form of "plane
-// coefficients on sublanes, rays on lanes"). Its arithmetic is hit.cuh's,
-// the fused multiply-adds where XLA:CPU fuses lab4.py:161-171 (measured),
-// so E equals its twin and kernel A bit for bit. What bounds it: the ~39
-// fp32 operations and the IEEE divide per pair, as kernel A.
+// Kernel E: 256 threads x 4 rays a block (warp w the 128 consecutive rays
+// from 128 w, lane l of it rays l, l + 32, l + 64, l + 96), over tiles of
+// tc triangles that TMA copies into a ring of kEStages slots on
+// mbarriers; the last warp done with a slot refills it. Lab4's rays each
+// leave from their own origin, so the exact test of a pair is ~45
+// instructions (o' and d' 21, the IEEE divide ~10, u, v, the tests): the
+// v1 kernel (one thread a ray, lab4 --variants e_thread_per_ray) was
+// bound by issuing them, not by bytes. Most pairs need only the z row: a
+// divide-free cull on o'z and d'z (the very FMAs of hit.cuh, so the same
+// bits) rejects every pair whose t is <= 0 or >= the ray's best
+// (`survives`, proof there). Each warp appends the (ray, slot) pairs that
+// survive, ~12 % on lab4's rays, to a ring queue in shared memory (ballot
+// and popc, in the order slot, then ray l + 32 q) and, when it holds
+// kBatch of them, runs them as full warps of the exact test, two a lane
+// (`drain`, the ray read from its columns of rays8); at a tile's last
+// slot it drains what is left, so the queue only holds the staged tile's
+// slots. A ray's best is a (t, slot) key in shared memory, lowered by
+// atomicMin: the unsigned order of the key is the reference's (t first,
+// then the lower slot), so the result is the sequential sweep's whatever
+// order a batch's lanes update in. E equals its twin and kernel A bit for
+// bit. Its plain model is lab4.py `vpu_rol_schedule` (the survivors and
+// batches of each warp), whose counts the counting instance
+// (tpt_vpu_rol_count) equals.
+// What bounds it: issue, still: the fast path's SASS a slot against a
+// lane's 4 rays (z rows, cull, queue, the slot's load and loop) and the
+// exact test's a batch, counted by lab4.vpu_rol_sass, against 4 x 21
+// operations of the bound a slot. Times and counts: PERF.md (lab4
+// --variants, chip_smoke.py phase 13).
+#include <cmath>
 #include <cstdint>
 
 #include "hit.cuh"
@@ -56,27 +79,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // kernel E: 4 warps
-
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-// Stage planes rows [base, base + tc) of each of the ncomp row groups of
-// `fp` rows (row width 4 floats) into smem [ncomp][tc][4].
-__device__ __forceinline__ void stage(const float* __restrict__ planes,
-                                      int fp, int base, int tc, int ncomp,
-                                      float* smem) {
-  __syncthreads();
-  const float4* src = reinterpret_cast<const float4*>(planes);
-  float4* dst = reinterpret_cast<float4*>(smem);
-  for (int k = threadIdx.x; k < ncomp * tc; k += blockDim.x) {
-    const int c = k / tc, r = k - c * tc;
-    dst[k] = __ldg(src + (size_t)c * fp + base + r);
-  }
-  __syncthreads();
 }
 
 // ---- kernel D ----------------------------------------------------------
@@ -366,38 +372,243 @@ __global__ void __launch_bounds__(kDThreads, 1)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    vpu_rol_kernel(const float* __restrict__ rays8,
-                   const float* __restrict__ planesT, int n, int fp, int tc,
-                   float* __restrict__ t_out, int* __restrict__ fid_out) {
-  extern __shared__ float4 smem4[];
-  const float* sp = reinterpret_cast<const float*>(smem4);  // [tc][12]
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int rr = r < n ? r : n - 1;  // idle lanes still stage
-  const float ox = rays8[rr], oy = rays8[(size_t)n + rr],
-              oz = rays8[2 * (size_t)n + rr];
-  const float dx = rays8[4 * (size_t)n + rr], dy = rays8[5 * (size_t)n + rr],
-              dz = rays8[6 * (size_t)n + rr];
-  float best_t = tpt::kRealMax;
-  int best = 0;
-  for (int base = 0; base < fp; base += tc) {
-    // [Fp, 12] is [3 * Fp, 4] in float4 rows: one group of 3 * tc rows
-    stage(planesT + (size_t)base * 12, 3 * tc, 0, 3 * tc, 1,
-          reinterpret_cast<float*>(smem4));
-    for (int f = 0; f < tc; ++f) {
-      const float* w = sp + 12 * f;
-      const tpt::Origin op = tpt::origin_terms(ox, oy, oz, w);
-      float t, u, v;
-      if (tpt::hit_terms(op, dx, dy, dz, w, t, u, v) && t < best_t) {
-        best_t = t;
-        best = base + f;
+// ---- kernel E ----------------------------------------------------------
+constexpr int kEThreads = 256;         // threads a block: lab4.E_THREADS
+constexpr int kERays = 4;              // rays a thread: lab4.E_RAYS
+constexpr int kEWarps = kEThreads / 32;
+constexpr int kEWarpRays = 32 * kERays;
+constexpr int kEBlockRays = kEThreads * kERays;
+constexpr int kEStages = 2;            // ring slots, tc triangles each
+constexpr int kBatch = 64;             // survivors an exact-test batch
+// a warp's survivor queue, a ring of 1 KB: at most kBatch - 1 wait while a
+// slot appends up to kEWarpRays
+constexpr unsigned kQueue = 256;
+// the cull's margin on a ray's best (lab4.BEST_UP)
+constexpr float kBestUp = 0x1.00001p+0f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// a block's shared memory: per warp its queue (1 KB aligned) and its
+// rays' keys, then the ring, the barriers and the refill counts
+size_t e_smem_bytes(int tc) {
+  return kEWarps * (kQueue * sizeof(int) +
+                    kEWarpRays * sizeof(unsigned long long)) +
+         (size_t)kEStages * tc * 48 +
+         kEStages * (sizeof(uint64_t) + sizeof(int));
+}
+
+// (t, slot) as one key whose unsigned order is the reference's: a hit has
+// t > DELTA, whose bits order as its values, and the lower slot wins ties
+__device__ __forceinline__ unsigned long long pack(float t, int slot) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned>(slot);
+}
+
+// -(best (1 + 2^-20)) of a ray's key: -inf until it has a hit, +inf for
+// a ray past n (whose key holds t = -inf)
+__device__ __forceinline__ float neg_best_up(unsigned long long key) {
+  return __uint_as_float(static_cast<unsigned>(key >> 32)) * -kBestUp;
+}
+
+// The cull: false only for a pair the exact test cannot take, given o'z = x
+// and d'z = y of hit.cuh (the same bits) and nbu = -(best (1 + 2^-20)) of
+// the ray, whose best slot is lower than this one. A sign flip, an fp32
+// multiply and compares only, so the model (lab4.vpu_rol_schedule)
+// repeats it exactly.
+// The test computes t = RN(-x / y) (IEEE) and takes the pair only if
+// t > DELTA and t < best (a tie goes to the lower slot, the best's).
+// xs is x with its sign flipped where y's sign bit is set; ay = |y|.
+// - Culled as !(xs < 0): x and y share a sign bit, so t is <= -0, -inf or
+//   NaN; or x = +-0 (t = +-0 or NaN); or x or y is NaN (t = NaN).
+// - Culled as xs < -hi, hi = RN(-nbu ay): x and y have opposite signs and
+//   |x| > hi. For y = 0, t = +-inf, never taken. Else for a normal hi,
+//   hi >= best ay (1 + 2^-20)(1 - 2^-24)^2 >= best ay; for a subnormal hi
+//   the float |x| is >= hi + 2^-149 > -nbu ay >= best ay. So q = |x| / |y|
+//   > best, and t = RN(q) >= RN(best) = best (RN is monotone). Before a
+//   ray's first hit nbu = -inf and -hi = -inf (NaN for y = 0, culled).
+// The pairs with 0 < t <= DELTA survive: the exact test rejects them (a
+// DELTA cull is the lab4 --variants build e_delta_cull).
+__device__ __forceinline__ bool survives(float x, float y, float nbu) {
+  const float xs =
+      __uint_as_float(__float_as_uint(x) ^ (__float_as_uint(y) & 0x80000000u));
+  return (xs < 0.f) & (xs >= nbu * fabsf(y));
+}
+
+// One batch of the queue's first m (<= kBatch) entries, lane l the
+// entries l, l + 32, ...: the exact test (hit.cuh, o' recomputed from the
+// ray's columns of rays8 [8, sn], the warp's rays from `first`), and a
+// hit that beats the ray's key lowers it. Then, if a key went down, every
+// lane reloads the thresholds of its rays.
+__device__ __forceinline__ void drain(const int* queue, unsigned head,
+                                      unsigned m, const float* tile,
+                                      int base, const float* rays8,
+                                      size_t sn, int first, int lane,
+                                      unsigned long long* key,
+                                      float (&nbu)[kERays]) {
+  bool took = false;
+#pragma unroll
+  for (int h = 0; h < kBatch / 32; ++h) {
+    const unsigned idx = lane + 32 * h;
+    if (idx >= m) break;
+    const int e = queue[(head + idx) % kQueue];
+    const int r = e & (kEWarpRays - 1), f = e >> 7;
+    float w[12];
+    tpt::load_planes_shared(tile + 12 * f, w);
+    const float* const ray = rays8 + first + r;
+    const float ox = __ldg(ray), oy = __ldg(ray + sn),
+                oz = __ldg(ray + 2 * sn), dx = __ldg(ray + 4 * sn),
+                dy = __ldg(ray + 5 * sn), dz = __ldg(ray + 6 * sn);
+    float t, u, v;
+    if (tpt::hit_terms(tpt::origin_terms(ox, oy, oz, w), dx, dy, dz, w, t, u,
+                       v)) {
+      const unsigned long long k = pack(t, base + f);
+      if (k < key[r]) {
+        atomicMin(key + r, k);
+        took = true;
       }
     }
   }
-  if (r < n) {
-    t_out[r] = best_t;
-    fid_out[r] = best_t >= tpt::kRealMax ? -1 : best;
+  if (__any_sync(kFull, took)) {
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kERays; ++q)
+      nbu[q] = neg_best_up(key[lane + 32 * q]);
   }
+}
+
+// kCount: the counting instance, which also writes each warp's survivors
+// and batches.
+template <bool kCount>
+__global__ void __launch_bounds__(kEThreads, 2)
+    vpu_rol_kernel(const float* __restrict__ rays8,
+                   const float* __restrict__ planesT, int n, int fp, int tc,
+                   float* __restrict__ t_out, int* __restrict__ fid_out,
+                   int* __restrict__ survivors_out,
+                   int* __restrict__ batches_out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* const queues = reinterpret_cast<int*>(smem);
+  unsigned long long* const keys = reinterpret_cast<unsigned long long*>(
+      queues + kEWarps * kQueue);
+  float* const ring = reinterpret_cast<float*>(
+      keys + kEWarps * kEWarpRays);  // [kEStages][tc][12]
+  uint64_t* const full = reinterpret_cast<uint64_t*>(
+      ring + static_cast<size_t>(kEStages) * tc * 12);
+  int* const done = reinterpret_cast<int*>(full + kEStages);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * kEBlockRays + warp * kEWarpRays;
+  unsigned long long* const key = keys + warp * kEWarpRays;
+  int* const queue = queues + warp * kQueue;
+  const uint32_t qs = tpt::smem_addr(queue);
+  const unsigned below = (1u << lane) - 1u;
+  float ox[kERays], oy[kERays], oz[kERays], dx[kERays], dy[kERays],
+      dz[kERays], nbu[kERays];
+#pragma unroll
+  for (int q = 0; q < kERays; ++q) {
+    const int i = first + lane + 32 * q;
+    const bool on = i < n;
+    const size_t sn = n;
+    ox[q] = on ? __ldg(rays8 + i) : 0.f;
+    oy[q] = on ? __ldg(rays8 + sn + i) : 0.f;
+    oz[q] = on ? __ldg(rays8 + 2 * sn + i) : 0.f;
+    dx[q] = on ? __ldg(rays8 + 4 * sn + i) : 0.f;
+    dy[q] = on ? __ldg(rays8 + 5 * sn + i) : 0.f;
+    dz[q] = on ? __ldg(rays8 + 6 * sn + i) : 0.f;
+    // a ray past n keeps no pair
+    key[lane + 32 * q] = pack(on ? tpt::kRealMax : -INFINITY, 0);
+    nbu[q] = neg_best_up(key[lane + 32 * q]);
+  }
+  if (threadIdx.x == 0) {
+    tpt::init_barriers(full, kEStages);
+    for (int s = 0; s < kEStages; ++s) done[s] = 0;
+  }
+  __syncthreads();
+  const int tiles = fp / tc;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kEStages && s < tiles; ++s)
+      tpt::bulk_copy(ring + static_cast<size_t>(s) * tc * 12,
+                     planesT + static_cast<size_t>(s) * tc * 12, tc * 48,
+                     &full[s]);
+  // the queue's ends in bytes, the same in every lane: an entry's address
+  // is qs | (its byte count mod 1 KB)
+  unsigned head = 0, tail = 0;
+  int batches = 0;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int s = tile % kEStages;
+    tpt::wait_parity(&full[s], (tile / kEStages) & 1);
+    const float* const tp = ring + static_cast<size_t>(s) * tc * 12;
+    const int base = tile * tc;
+    const float4* z4 = reinterpret_cast<const float4*>(tp) + 2;  // z rows
+#pragma unroll 1
+    for (int j = 0; j < tc; ++j, z4 += 3) {
+      const float4 z = *z4;
+#pragma unroll
+      for (int q = 0; q < kERays; ++q) {
+        const float x = tpt::affine(ox[q], oy[q], oz[q], z.x, z.y, z.z) + z.w;
+        const float y = tpt::affine(dx[q], dy[q], dz[q], z.x, z.y, z.z);
+        const bool keep = survives(x, y, nbu[q]);
+        const unsigned b = __ballot_sync(kFull, keep);
+        if (keep)
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                           qs | ((tail + 4 * __popc(b & below)) & 1023u)),
+                       "r"((j << 7) | (lane + 32 * q))
+                       : "memory");
+        tail += 4 * __popc(b);
+      }
+      // full batches; at the tile's last slot also the rest
+      const unsigned need = j == tc - 1 ? 4u : 4u * kBatch;
+      while (tail - head >= need) {
+        const unsigned m = min(tail - head, 4u * kBatch) / 4;
+        drain(queue, head / 4, m, tp, base, rays8, n, first, lane, key,
+              nbu);
+        head += 4 * m;
+        if (kCount) ++batches;
+      }
+    }
+    // every lane of this warp is done with the slot; the last warp refills
+    // it
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&done[s], 1) == kEWarps - 1) {
+        done[s] = 0;
+        const int next = tile + kEStages;
+        if (next < tiles)
+          tpt::bulk_copy(ring + static_cast<size_t>(s) * tc * 12,
+                         planesT + static_cast<size_t>(next) * tc * 12,
+                         tc * 48, &full[s]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kERays; ++q) {
+    const int i = first + lane + 32 * q;
+    if (i >= n) continue;
+    const unsigned long long k = key[lane + 32 * q];
+    const float t = __uint_as_float(static_cast<unsigned>(k >> 32));
+    t_out[i] = t;
+    fid_out[i] = t >= tpt::kRealMax ? -1 : static_cast<int>(k & 0xffffffffu);
+  }
+  if (kCount && lane == 0) {
+    survivors_out[blockIdx.x * kEWarps + warp] = static_cast<int>(tail / 4);
+    batches_out[blockIdx.x * kEWarps + warp] = batches;
+  }
+}
+
+// Kernel E's launch (counts: null, or survivors and batches of each of
+// the blocks * kEWarps warps).
+int e_launch(const float* rays8, const float* planesT, int n, int fp, int tc,
+             float* t, int* fid, int* survivors, int* batches,
+             cudaStream_t st) {
+  const size_t smem = e_smem_bytes(tc);
+  const auto kernel =
+      survivors ? vpu_rol_kernel<true> : vpu_rol_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + kEBlockRays - 1) / kEBlockRays;
+  kernel<<<blocks, kEThreads, smem, st>>>(rays8, planesT, n, fp, tc, t, fid,
+                                          survivors, batches);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -424,13 +635,20 @@ extern "C" int tpt_mxu_hit(const float* rays8, const float* planes4, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rays8 [8, N], planesT [Fp, 12] (16-byte aligned), tc | Fp, tc <= 1024.
+// rays8 [8, N], planesT [Fp, 12] (16-byte aligned), tc | Fp, tc a
+// multiple of 16 up to 1024. Returns cudaGetLastError() after the launch.
 extern "C" int tpt_vpu_rol_hit(const float* rays8, const float* planesT,
                                int n, int fp, int tc, float* t, int* fid,
                                void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  vpu_rol_kernel<<<blocks, kThreads, 48 * tc,
-                   static_cast<cudaStream_t>(stream)>>>(rays8, planesT, n, fp,
-                                                        tc, t, fid);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t est = static_cast<cudaStream_t>(stream);
+  return e_launch(rays8, planesT, n, fp, tc, t, fid, nullptr, nullptr, est);
+}
+
+// The counting launch: also survivors [W] and batches [W] of each warp,
+// W = ceil(N / 1024) * 8 (lab4.vpu_rol_schedule's).
+extern "C" int tpt_vpu_rol_count(const float* rays8, const float* planesT,
+                                 int n, int fp, int tc, float* t, int* fid,
+                                 int* survivors, int* batches, void* stream) {
+  return e_launch(rays8, planesT, n, fp, tc, t, fid, survivors, batches,
+                  static_cast<cudaStream_t>(stream));
 }
