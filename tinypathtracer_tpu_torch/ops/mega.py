@@ -63,6 +63,7 @@ from tinypathtracer_tpu_torch.render.integrator import (Paths, TraceData,
                                                         trace_paths)
 from tinypathtracer_tpu_torch.utils import cuda_build
 from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
+from tinypathtracer_tpu_torch.utils.metrics import span
 
 MEGA_MAX_FACES = 8192
 MAX_LIGHTS = 6
@@ -311,12 +312,13 @@ def _mega_cuda(rays8, u8d, planesT, shadeT, lights, depth: int,
                 and rounds.is_contiguous() and rounds.shape == (g,)):
             raise ValueError(f"rounds must be a contiguous int32 tensor of "
                              f"{g} on {dev}")
-    status = _lib().tpt_mega_trace(
-        rays8.data_ptr(), u8d.data_ptr(), planesT.data_ptr(),
-        shade_rows.data_ptr(), lights.data_ptr(), n, fp, depth, n_lights,
-        blocks, out.data_ptr(), hits.data_ptr() if save_hits else None,
-        None if rounds is None else rounds.data_ptr(),
-        cuda_build.stream_ptr(dev))
+    with span("tpt.kernel_b"):
+        status = _lib().tpt_mega_trace(
+            rays8.data_ptr(), u8d.data_ptr(), planesT.data_ptr(),
+            shade_rows.data_ptr(), lights.data_ptr(), n, fp, depth, n_lights,
+            blocks, out.data_ptr(), hits.data_ptr() if save_hits else None,
+            None if rounds is None else rounds.data_ptr(),
+            cuda_build.stream_ptr(dev))
     cuda_build.check_launch(status, "mega_trace")
     if save_hits:
         mega_trace.launches_save_hits += 1
@@ -342,8 +344,9 @@ def mega_trace(rays8, u8d, planesT, shadeT, lights, depth: int,
         if rounds is not None:
             raise ValueError("rounds are counted by kernel B only: the "
                              "plain twin runs no blocks")
-        return _mega_torch(rays8, u8d, planesT, shadeT, lights, depth,
-                           n_lights, save_hits)
+        with span("tpt.kernel_b"):
+            return _mega_torch(rays8, u8d, planesT, shadeT, lights, depth,
+                               n_lights, save_hits)
     raise ValueError(f"mega_trace has no kernel for device {rays8.device}")
 
 
@@ -371,10 +374,11 @@ def bounce_uniforms(lane_keys, depth: int):
     lane_uniform(fold_all(keys, bounce), 6), padded to 8 rows."""
     n = lane_keys.shape[0]
     bands = []
-    for dep in range(depth):
-        bands.append(lane_uniform(fold_all(lane_keys, dep), 6).T)
-        bands.append(lane_keys.new_zeros((2, n), dtype=torch.float32))
-    return torch.cat(bands, dim=0)
+    with span("tpt.keys"):
+        for dep in range(depth):
+            bands.append(lane_uniform(fold_all(lane_keys, dep), 6).T)
+            bands.append(lane_keys.new_zeros((2, n), dtype=torch.float32))
+        return torch.cat(bands, dim=0)
 
 
 def mega_operands(data: TraceData, cfg, woop: WoopTris, origins, dirs,

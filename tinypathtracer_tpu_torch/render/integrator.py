@@ -73,6 +73,7 @@ from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, dot_c
 from tinypathtracer_tpu_torch.ops.traverse import _ray_tri_single
 from tinypathtracer_tpu_torch.utils.math3d import (f32_reciprocal, fma, sqrt,
                                                    vcross, vdot, xla_cumsum)
+from tinypathtracer_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -621,8 +622,12 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
         st = Paths(o=carry[0:3], d=carry[3:6], thr=carry[6:9],
                    rad=carry[9:12], alive=carry[12])
         prev_spec, prev_pdf = carry[13], carry[14]
-        u = (lane_uniform(fold_all(lane_keys, depth), 9 if physical else 6).T
-             if uniforms is None else uniforms[8 * depth:8 * depth + 6])
+        if uniforms is None:
+            with span("tpt.keys"):
+                u = lane_uniform(fold_all(lane_keys, depth),
+                                 9 if physical else 6).T
+        else:
+            u = uniforms[8 * depth:8 * depth + 6]
         o3, d3 = torch.stack(st.o, dim=1), torch.stack(st.d, dim=1)
         if stored_hits is None:
             fid, t_k, uv = hit_query(o3, d3, st.alive)

@@ -17,6 +17,11 @@ walk, ops/traverse.py) and "bruteforce" (ops/intersect.py) run the
 modular loop only; `Renderer` refuses a tree deeper than the bvh walk's
 stack holds.
 
+Under a torch profiler the frame records its layers as ranges
+(`utils.metrics.span`): `tpt.frame` (one render), `tpt.prepare` (the
+frame's tables), `tpt.chunk` (one chunk), `tpt.keys` (the threefry key
+chain), `tpt.kernel_b` (the megakernel's launch) and `tpt.film`.
+
 Kernels run where the scene's tensors live: on CUDA the hand-written
 kernels, on the CPU their plain PyTorch twins. `render_pixel_ids` and
 `render_frame` are differentiable (diff/invrender.py differentiates
@@ -50,6 +55,7 @@ from tinypathtracer_tpu_torch.ops.traverse import closest_hit_bvh
 from tinypathtracer_tpu_torch.render import film, raygen
 from tinypathtracer_tpu_torch.render.integrator import TraceData, trace_paths
 from tinypathtracer_tpu_torch.utils import native
+from tinypathtracer_tpu_torch.utils.metrics import span
 
 # Key-derivation tag for the camera-jitter draw; bounces use their depth
 # (0..max_depth-1) as the tag, so any large constant is collision-free.
@@ -86,21 +92,23 @@ def prepare_state(scene: FlatScene, cfg: RenderConfig,
     """Trace data and intersector tables of one frame. prebuilt_bvh (the
     "bvh" route): a tree built elsewhere (host_build_bvh), used with
     this frame's triangles."""
-    data = TraceData.from_scene(scene)
-    # the intersector's tables carry no gradient (hit ids are detached)
-    tri_verts = data.tri_verts.detach()
-    isect = resolve_intersector(cfg, tri_verts.shape[0])
-    state = PipelineState(scene=scene, data=data, woop=None)
-    if isect == "packet":
-        state.packet = precompute_packet(tri_verts)
-        state.woop = state.packet.woop
-    elif isect == "dense":
-        state.woop = precompute_woop(tri_verts)
-    elif isect == "bvh":
-        state.bvh = (build_lbvh(tri_verts) if prebuilt_bvh is None
-                     else dataclasses.replace(prebuilt_bvh.to(scene.device),
-                                              tri_verts=tri_verts))
-    return state
+    with span("tpt.prepare"):
+        data = TraceData.from_scene(scene)
+        # the intersector's tables carry no gradient (hit ids are detached)
+        tri_verts = data.tri_verts.detach()
+        isect = resolve_intersector(cfg, tri_verts.shape[0])
+        state = PipelineState(scene=scene, data=data, woop=None)
+        if isect == "packet":
+            state.packet = precompute_packet(tri_verts)
+            state.woop = state.packet.woop
+        elif isect == "dense":
+            state.woop = precompute_woop(tri_verts)
+        elif isect == "bvh":
+            state.bvh = (build_lbvh(tri_verts) if prebuilt_bvh is None
+                         else dataclasses.replace(
+                             prebuilt_bvh.to(scene.device),
+                             tri_verts=tri_verts))
+        return state
 
 
 def host_build_bvh(scene: FlatScene, pad_rel: float = 1e-5) -> BVH:
@@ -145,8 +153,9 @@ def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key,
     lane_pix = pix.repeat_interleave(spp)
     lane_s = sample_offset + torch.arange(
         spp, dtype=torch.int64, device=pix.device).repeat(pix.shape[0])
-    keys = fold_in(fold_lanes(key, lane_pix), lane_s)
-    u_cam = lane_uniform(fold_all(keys, _CAM_TAG), 2)
+    with span("tpt.keys"):
+        keys = fold_in(fold_lanes(key, lane_pix), lane_s)
+        u_cam = lane_uniform(fold_all(keys, _CAM_TAG), 2)
     o, d = raygen.camera_rays_u(
         u_cam, scene.cam_to_world, scene.cam_yfov, scene.cam_aspect,
         lane_pix % cfg.width, lane_pix // cfg.width, cfg.width, cfg.height)
@@ -171,15 +180,16 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key,
     px_chunk = max(1, min(n, cfg.rays_per_dispatch // spp))
     out = []
     for start in range(0, n, px_chunk):
-        chunk_pix = pix[start:start + px_chunk]
-        m = chunk_pix.shape[0]
-        o, d, keys = lane_rays(state.scene, cfg, chunk_pix, key, spp,
-                               sample_offset)
-        if use_mega:
-            rad = trace_paths_mega(data, cfg, state.woop, o, d, keys)
-        else:
-            rad = trace_paths(data, cfg, hit, o, d, keys)
-        out.append(rad.reshape(m, spp, 3).sum(dim=1))
+        with span("tpt.chunk"):
+            chunk_pix = pix[start:start + px_chunk]
+            m = chunk_pix.shape[0]
+            o, d, keys = lane_rays(state.scene, cfg, chunk_pix, key, spp,
+                                   sample_offset)
+            if use_mega:
+                rad = trace_paths_mega(data, cfg, state.woop, o, d, keys)
+            else:
+                rad = trace_paths(data, cfg, hit, o, d, keys)
+            out.append(rad.reshape(m, spp, 3).sum(dim=1))
     return torch.cat(out, dim=0)
 
 
@@ -257,11 +267,12 @@ class Renderer:
 
     def render(self, scene: FlatScene, key):
         """Returns the mean-radiance image [H, W, 3], top-down rows."""
-        with torch.inference_mode():
+        with torch.inference_mode(), span("tpt.frame"):
             self._validate_stack(scene)
             rad_sum = render_frame(scene.to(self.device), self.cfg,
                                    key.to(self.device), self._bvh_for(scene))
-            return film.to_image(rad_sum, self.cfg.spp)
+            with span("tpt.film"):
+                return film.to_image(rad_sum, self.cfg.spp)
 
     def progressive(self, width=None, height=None):
         """A resumable accumulator bound to this pipeline
@@ -273,7 +284,7 @@ class Renderer:
             ProgressiveRender
 
         def fn(scene, key, sample_offset, n_samples):
-            with torch.inference_mode():
+            with torch.inference_mode(), span("tpt.frame"):
                 self._validate_stack(scene)
                 return render_frame(scene.to(self.device), self.cfg,
                                     key.to(self.device), self._bvh_for(scene),

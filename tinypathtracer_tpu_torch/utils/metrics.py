@@ -8,6 +8,9 @@
     the JAX package's keys;
   * `trace_profile`: `torch.profiler` around a block, written as a
     Chrome trace (chrome://tracing, Perfetto);
+  * `span`: a named range inside the program (`tpt.frame`, `tpt.chunk`,
+    ...), recorded by whatever torch profiler is running, on the clock
+    of the card's kernels; nothing but one check when none is;
   * `timed_render`: one render with its RenderStats.
 """
 
@@ -97,6 +100,21 @@ def trace_profile(logdir: Optional[str]):
         yield
         synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context of a named range of the program: while a torch
+    profiler records (`trace_profile`, or any `torch.profiler.profile`),
+    `torch.profiler.record_function(name)`, which the profiler keeps
+    beside the kernels, copies and runtime calls the range launches;
+    otherwise one shared null context, so that a range costs one check
+    and enters no profiler op."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def timed_render(renderer, scene, key) -> tuple:
