@@ -6,8 +6,8 @@ one NVIDIA GPU.
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits
 non-zero):
-  1. the card, the versions, and the build of the six CUDA kernels
-     (five sources, one nvcc each, all at once) from this checkout;
+  1. the card, the versions, and the build of the eight CUDA kernels
+     (six sources, one nvcc each, all at once) from this checkout;
   2. kernel A (dense closest hit, SUPER-gated from 4,096 padded faces)
      against its plain PyTorch twin on the card, exactly ((slot, t, u,
      v)): on the room (ungated), the big room (gated, 8 runs) and the
@@ -205,7 +205,19 @@ non-zero):
      JAX entry's config (the megakernel route); dryrun_multichip(2),
      two gloo ranks on this card, mesh (1, 2): its loss within 1e-6 of
      the one-device step's at the dry run's config, save_hits launches
-     on each rank and no other kernel.
+     on each rank and no other kernel;
+ 34. the threefry key chain (csrc/keys.cu) against the int64 chain on
+     the card, torch.equal: lane keys and camera draws of a full 2**20-
+     lane chunk of the Cornell cell's shape, a ragged batch of pixel ids
+     up to 2**31 - 1 with a sample offset, and a batch whose samples
+     wrap at 2**32; on each, the bounce draws at tags 0-7 (the
+     megakernel's [64, N], zero rows included), from _CAM_TAG and across
+     the 2**32 wrap, and the modular draws at m = 6 and 9; then the
+     launch counters over one megakernel frame (one lane_keys and one
+     lane_draws launch a chunk) and one modular frame (one lane_keys a
+     chunk, a lane_draws a bounce run), and both kernels' times at a
+     2**20-lane chunk beside their bound (the integer ALU pipe or bytes)
+     and the int64 chain's.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s;
@@ -284,6 +296,15 @@ PHYSICAL_ORACLE_PIXELS = 36
 # arithmetic, and take different faces where two are tied at an edge
 # (3 pixels on the H100 at this key; twice that allowed)
 ORACLE_EDGE_PIXELS = 6
+# the key chain (phase 34): a chunk of the Cornell cell (1920x1080 @16 spp,
+# 2**20 lanes: 65,536 pixels), its 16th. Its bound: the rotates (funnel
+# shifts) and xors of a threefry2x32's 20 rounds run only on the integer
+# ALU pipe, 16 lanes a clock on each of an SM's 4 schedulers (132 SMs x 64
+# x 1.98 GHz); its ~32 adds may issue on the IMAD pipe beside them, so 40
+# ALU operations a hash is the least it needs
+KEY_CHUNK_PIXELS = 65536
+ALU_PEAK = 132 * 64 * 1.98e9
+ALU_OPS_THREEFRY = 40
 
 
 def log(*args):
@@ -2760,6 +2781,98 @@ def flagship_train(T, sky, dev):
     return out, total
 
 
+def keys_phase(T, sky, dev):
+    """Phase 34: csrc/keys.cu bit-equal to the int64 chain on the card,
+    the launch counters over a frame of each route, and the kernels'
+    times beside their bound and the chain's. Returns the kernels JSON
+    rows of lane_keys and lane_draws."""
+    from tinypathtracer_tpu_torch.ops import dense, mega, sampling
+    from tinypathtracer_tpu_torch.render.renderer import _CAM_TAG
+    from tinypathtracer_tpu_torch.tools.common import HBM_BYTES_PER_S
+
+    frame_key = sampling.fold_in(T.prng_key(3000000007, dev), 5)
+    ids = torch.tensor([0, 1, 2, 3, 127, 128, 65535, 1 << 20, 2**31 - 3,
+                        2**31 - 2, 2**31 - 1], device=dev)
+    chunk_pix = torch.arange(KEY_CHUNK_PIXELS, device=dev) \
+        + 16 * KEY_CHUNK_PIXELS
+    cases = (("Cornell chunk", chunk_pix, 16, 0),
+             ("ragged, ids to 2**31 - 1", (2**31 - 1) - torch.arange(
+                 1037, device=dev), 3, 12345),
+             ("samples wrapping at 2**32", ids, 16, 2**32 - 5))
+    draws = ((0, 8, 6, 8), (_CAM_TAG, 1, 6, 6), (_CAM_TAG, 1, 9, 9),
+             (3, 1, 9, 9), (2**32 - 3, 8, 6, 8))
+    for what, pix, spp, offset in cases:
+        keys, u_cam = sampling.lane_keys(frame_key, pix, spp, offset,
+                                         _CAM_TAG)
+        want = sampling._lane_keys_torch(frame_key, pix, spp, offset,
+                                         _CAM_TAG)
+        if not (torch.equal(keys, want[0]) and torch.equal(u_cam, want[1])):
+            raise AssertionError(f"lane_keys differs from the int64 chain: "
+                                 f"{what}")
+        for args in draws:
+            if not torch.equal(sampling.lane_draws(keys, *args),
+                               sampling._lane_draws_torch(keys, *args)):
+                raise AssertionError(f"lane_draws{args} differs from the "
+                                     f"int64 chain: {what}")
+        log(f"key chain, {what}: {keys.shape[0]} lanes, lane keys, camera "
+            f"draws and draws {[a[:3] for a in draws]} bit-equal to the "
+            "int64 chain")
+
+    cfg = T.RenderConfig(width=512, height=512, spp=16, max_depth=8)
+    room = T.sphere_grid_scene(*ROOM, env_radiance=sky)
+    n_chunks = chunks_of(cfg)
+    for route, megakernel in (("megakernel", True), ("modular", False)):
+        zero_launches()
+        sampling.lane_keys.launches = sampling.lane_draws.launches = 0
+        T.Renderer(dataclasses.replace(cfg, megakernel=megakernel),
+                   device="cuda").render(room, T.prng_key(0))
+        torch.cuda.synchronize()
+        counts = {"lane_keys": sampling.lane_keys.launches,
+                  "lane_draws": sampling.lane_draws.launches,
+                  "mega": mega.mega_trace.launches,
+                  "dense": dense.dense_hit.launches}
+        log(f"key chain launches, {route} frame of {n_chunks} chunks: "
+            f"{counts}")
+        draws_ok = (counts["lane_draws"] == n_chunks if megakernel else
+                    n_chunks <= counts["lane_draws"]
+                    <= n_chunks * cfg.max_depth)
+        if not (counts["lane_keys"] == n_chunks and draws_ok
+                and counts["mega" if megakernel else "dense"] > 0):
+            raise AssertionError(f"the {route} frame did not draw its keys "
+                                 f"through csrc/keys.cu: {counts}")
+
+    n = KEY_CHUNK_PIXELS * 16
+    keys = sampling.lane_keys(frame_key, chunk_pix, 16, 0, _CAM_TAG)[0]
+    rows = []
+    for name, kernel, twin, hashes, nbytes in (
+            ("lane_keys",
+             lambda: sampling.lane_keys(frame_key, chunk_pix, 16, 0,
+                                        _CAM_TAG),
+             lambda: sampling._lane_keys_torch(frame_key, chunk_pix, 16, 0,
+                                               _CAM_TAG),
+             5, KEY_CHUNK_PIXELS * 8 + n * (16 + 8)),
+            ("lane_draws",
+             lambda: sampling.lane_draws(keys, 0, 8, 6, 8),
+             lambda: sampling._lane_draws_torch(keys, 0, 8, 6, 8),
+             56, n * (16 + 64 * 4))):
+        ms, _ = cuda_ms(kernel, 20)
+        plain_ms, _ = cuda_ms(twin, 3)
+        t_ops = n * hashes * ALU_OPS_THREEFRY / ALU_PEAK
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        b_ms = max(t_ops, t_bytes) * 1e3
+        b_by = "ALU pipe" if t_ops >= t_bytes else "bytes"
+        log(f"{name}, 2**20-lane chunk: {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: {hashes} hashes a lane x {ALU_OPS_THREEFRY} ALU "
+            f"operations, {nbytes / n:.1f} B a lane), {ms / b_ms:.2f}x its "
+            f"bound; the int64 chain {plain_ms:.1f} ms")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "tinypathtracer_tpu_torch/csrc/keys.cu",
+                     "replaces": None, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "max_abs_err": 0.0})
+    return rows
+
+
 def entry_phase(T):
     """Phase 33: the entry points of tinypathtracer_tpu_torch.entry on
     the card. entry() called once: its frame equal bit for bit to
@@ -2842,9 +2955,11 @@ def main():
     from tinypathtracer_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
+    from tinypathtracer_tpu_torch.ops import sampling
+
     cuda_build.build_libraries(["dense", "mega", "packet", "lab4",
-                                "lab5_diag"])
-    for mod in (dense, mega, packet, lab4, lab5_diag):
+                                "lab5_diag", "keys"])
+    for mod in (dense, mega, packet, lab4, lab5_diag, sampling):
         mod._lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
@@ -3159,6 +3274,8 @@ def main():
     phase_done("phase 32")
     entry_launches = entry_phase(T)
     phase_done("phase 33")
+    key_rows = keys_phase(T, sky, dev)
+    phase_done("phase 34")
     log(f"launches of the main paths of phases 23-27: {textured}")
     for kernel in ("dense", "packet", "mega_save_hits"):
         if not textured.get(kernel):
@@ -3223,6 +3340,7 @@ def main():
             for k, row in nee_bounds["C"].items()
             for f, v in zip(("queries", "ms", "bound_ms", "bound_by"), row)}},
     ]
+    kernels += key_rows
     diag_ms, diag_visits = lab["diag"][4:]
     extra = {"mxu": {"design": "wgmma TF32 from TMA-staged planes, "
                                "3xTF32 folded into K = 16",

@@ -56,7 +56,7 @@ import torch
 from tinypathtracer_tpu_torch.ops.dense import (WoopTris, hit_terms,
                                                 origin_terms, scan_queries)
 from tinypathtracer_tpu_torch.ops.lights import lights_block
-from tinypathtracer_tpu_torch.ops.sampling import fold_all, lane_uniform
+from tinypathtracer_tpu_torch.ops.sampling import lane_draws
 from tinypathtracer_tpu_torch.render.integrator import (Paths, TraceData,
                                                         end_bounce, env_miss,
                                                         scatter, trace_bounces,
@@ -371,14 +371,9 @@ def unpack_hits(hits, perm, depth: int):
 
 def bounce_uniforms(lane_keys, depth: int):
     """u8d [8*depth, N]: per bounce the modular loop's exact draws
-    lane_uniform(fold_all(keys, bounce), 6), padded to 8 rows."""
-    n = lane_keys.shape[0]
-    bands = []
-    with span("tpt.keys"):
-        for dep in range(depth):
-            bands.append(lane_uniform(fold_all(lane_keys, dep), 6).T)
-            bands.append(lane_keys.new_zeros((2, n), dtype=torch.float32))
-        return torch.cat(bands, dim=0)
+    lane_uniform(fold_all(keys, bounce), 6), padded to 8 rows (one launch
+    of csrc/keys.cu on the card)."""
+    return lane_draws(lane_keys, 0, depth, 6, 8)
 
 
 def mega_operands(data: TraceData, cfg, woop: WoopTris, origins, dirs,

@@ -17,6 +17,13 @@ default there):
                               float((w >> 9) | 0x3F800000) - 1;
   * `split(key, n)[i]`     -> threefry2x32(key, (0, i)) = fold_in(key, i).
 
+The frame's own chain runs through two entry points: `lane_keys` (each
+lane's key and camera draws) and `lane_draws` (a lane's bounce draws).
+On CUDA tensors each is one launch of `csrc/keys.cu`, the chain in
+32-bit registers; on CPU tensors, their plain twins `_lane_keys_torch`
+and `_lane_draws_torch`, the int64 chain above. Under a profiler both
+record the span `tpt.keys`.
+
 The samplers take raw uniforms (`*_u`) or a key, and work on (..., 3)
 tensors; the bounce loop's component-form versions are in
 ops/shading_c.py, which these share.
@@ -24,13 +31,17 @@ ops/shading_c.py, which these share.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 
 from tinypathtracer_tpu_torch.ops import shading_c
 from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, PI
+from tinypathtracer_tpu_torch.utils import cuda_build
 from tinypathtracer_tpu_torch.utils.math3d import sqrt
+from tinypathtracer_tpu_torch.utils.metrics import span
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -97,6 +108,116 @@ def lane_uniform(keys, m: int):
     b0, b1 = threefry2x32(keys[..., 0:1], keys[..., 1:2],
                           torch.zeros_like(j), j)
     return _to_unit(b0, b1)
+
+
+def _lane_keys_torch(key, pix, spp: int, sample_offset: int, cam_tag: int):
+    """Plain twin of `lane_keys`: the int64 chain."""
+    lane_pix = pix.repeat_interleave(spp)
+    lane_s = sample_offset + torch.arange(
+        spp, dtype=torch.int64, device=pix.device).repeat(pix.shape[0])
+    keys = fold_in(fold_lanes(key, lane_pix), lane_s)
+    return keys, lane_uniform(fold_all(keys, cam_tag), 2)
+
+
+def _lane_draws_torch(keys, first_tag: int, n_tags: int, m: int, rows: int):
+    """Plain twin of `lane_draws`: the int64 chain."""
+    out = keys.new_zeros((n_tags * rows, keys.shape[0]), dtype=torch.float32)
+    for b in range(n_tags):
+        out[b * rows:b * rows + m] = lane_uniform(
+            fold_all(keys, first_tag + b), m).T
+    return out
+
+
+@functools.cache
+def _lib():
+    lib = cuda_build.load_library("keys")
+    lib.tpt_lane_keys.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+        + [ctypes.c_uint32] * 2 + [ctypes.c_void_p] * 3
+    lib.tpt_lane_keys.restype = ctypes.c_int
+    lib.tpt_lane_draws.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_uint32] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 2
+    lib.tpt_lane_draws.restype = ctypes.c_int
+    return lib
+
+
+def _check_ints(what, t, ndim: int, dev):
+    """Key-chain operands: contiguous int64 tensors of ndim dimensions on
+    dev, which is the CPU or a card."""
+    if not (t.dtype == torch.int64 and t.dim() == ndim and t.is_contiguous()
+            and t.device == dev and dev.type in ("cpu", "cuda")):
+        raise ValueError(
+            f"{what} must be a contiguous {ndim}-d int64 tensor on the CPU "
+            f"or a card, beside the other operands (got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}, contiguous="
+            f"{t.is_contiguous()}; the operands are on {dev})")
+
+
+def lane_keys(key, pix, spp: int, sample_offset: int, cam_tag: int):
+    """The keys and camera draws of the lanes of pixel ids pix [P], one
+    lane per (pixel, sample), pixel-major: lane i is pixel pix[i // spp]
+    at absolute sample sample_offset + i % spp. Returns (keys [P*spp, 2]
+    int64, fold_in(fold_in(key, pixel), sample); u_cam [P*spp, 2]
+    float32, lane_uniform(fold_all(keys, cam_tag), 2)). key [2] and pix
+    are int64 on one device: one launch of csrc/keys.cu on a card (counted
+    by `lane_keys.launches`), the int64 chain on the CPU."""
+    _check_ints("pix", pix, 1, pix.device)
+    _check_ints("key", key, 1, pix.device)
+    if key.shape[0] != 2 or spp < 1:
+        raise ValueError(f"lane_keys: key of shape {tuple(key.shape)} (not "
+                         f"[2]) or spp {spp} < 1")
+    with span("tpt.keys"):
+        if pix.device.type == "cpu":
+            return _lane_keys_torch(key, pix, spp, sample_offset, cam_tag)
+        n = pix.shape[0] * spp
+        if n >= 1 << 31:
+            raise ValueError(f"lane_keys: {n} lanes need 64-bit indices")
+        keys = torch.empty((n, 2), dtype=torch.int64, device=pix.device)
+        u_cam = torch.empty((n, 2), dtype=torch.float32, device=pix.device)
+        if n == 0:
+            return keys, u_cam
+        status = _lib().tpt_lane_keys(
+            key.data_ptr(), pix.data_ptr(), n, spp, sample_offset & _MASK,
+            cam_tag & _MASK, keys.data_ptr(), u_cam.data_ptr(),
+            cuda_build.stream_ptr(pix.device))
+        cuda_build.check_launch(status, "lane_keys")
+        lane_keys.launches += 1
+        return keys, u_cam
+
+
+def lane_draws(keys, first_tag: int, n_tags: int, m: int,
+               rows: int | None = None):
+    """[n_tags * rows, N] float32 draws of lane keys [N, 2] (int64), one
+    band of rows (m by default) a tag first_tag + b, b < n_tags: rows
+    0..m-1 of band b are lane_uniform(fold_all(keys, first_tag + b), m).T,
+    the rest zero. One launch of csrc/keys.cu on a card (counted by
+    `lane_draws.launches`), the int64 chain on the CPU."""
+    rows = m if rows is None else rows
+    _check_ints("keys", keys, 2, keys.device)
+    if keys.shape[1] != 2 or n_tags < 1 or not 1 <= m <= rows:
+        raise ValueError(f"lane_draws: keys {tuple(keys.shape)}, {n_tags} "
+                         f"tags, m {m}, rows {rows}")
+    with span("tpt.keys"):
+        if keys.device.type == "cpu":
+            return _lane_draws_torch(keys, first_tag, n_tags, m, rows)
+        n = keys.shape[0]
+        if n >= 1 << 31 or keys.data_ptr() % 16:
+            raise ValueError(f"lane_draws: {n} keys at {keys.data_ptr():#x} "
+                             "(the kernel takes < 2**31, 16-byte aligned)")
+        out = torch.empty((n_tags * rows, n), dtype=torch.float32,
+                          device=keys.device)
+        if n == 0:
+            return out
+        status = _lib().tpt_lane_draws(
+            keys.data_ptr(), n, first_tag & _MASK, n_tags, m, rows,
+            out.data_ptr(), cuda_build.stream_ptr(keys.device))
+        cuda_build.check_launch(status, "lane_draws")
+        lane_draws.launches += 1
+        return out
+
+
+lane_keys.launches = 0
+lane_draws.launches = 0
 
 
 def uniform(key, shape):

@@ -67,13 +67,12 @@ from tinypathtracer_tpu_torch.models.texture import (build_atlas_mips,
 from tinypathtracer_tpu_torch.ops import shading_c
 from tinypathtracer_tpu_torch.ops.lights import (lights_block,
                                                  sample_delta_light)
-from tinypathtracer_tpu_torch.ops.sampling import (fold_all, lane_uniform,
+from tinypathtracer_tpu_torch.ops.sampling import (lane_draws,
                                                    triangle_uniform_u)
 from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, dot_c
 from tinypathtracer_tpu_torch.ops.traverse import _ray_tri_single
 from tinypathtracer_tpu_torch.utils.math3d import (f32_reciprocal, fma, sqrt,
                                                    vcross, vdot, xla_cumsum)
-from tinypathtracer_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -567,9 +566,10 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                 origins, dirs, lane_keys, stored_hits=None, uniforms=None):
     """Trace a batch of rays to completion; returns radiance [N, 3].
 
-    lane_keys: [N, 2] keys, one per ray lane. Every draw of a bounce
-    comes from the lane's key (`lane_uniform(fold_all(keys, depth), m)`,
-    m = 6 in reference mode, 9 in physical mode), so results do not
+    lane_keys: [N, 2] keys, one per ray lane (contiguous int64). Every
+    draw of a bounce comes from the lane's key (`lane_uniform(fold_all(
+    keys, depth), m)`, m = 6 in reference mode, 9 in physical mode; one
+    `ops.sampling.lane_draws` a bounce), so results do not
     depend on batching. uniforms (reference mode): those draws
     precomputed, [8 * max_depth, N] (ops/mega.py `bounce_uniforms`);
     lane_keys is then not read. The loop stops when every lane is dead:
@@ -623,9 +623,7 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                    rad=carry[9:12], alive=carry[12])
         prev_spec, prev_pdf = carry[13], carry[14]
         if uniforms is None:
-            with span("tpt.keys"):
-                u = lane_uniform(fold_all(lane_keys, depth),
-                                 9 if physical else 6).T
+            u = lane_draws(lane_keys, depth, 1, 9 if physical else 6)
         else:
             u = uniforms[8 * depth:8 * depth + 6]
         o3, d3 = torch.stack(st.o, dim=1), torch.stack(st.d, dim=1)

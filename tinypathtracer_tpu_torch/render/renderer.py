@@ -49,8 +49,7 @@ from tinypathtracer_tpu_torch.ops.mega import (MEGA_MAX_FACES, mega_available,
 from tinypathtracer_tpu_torch.ops.packet import (PacketTris,
                                                  closest_hit_packet,
                                                  precompute_packet)
-from tinypathtracer_tpu_torch.ops.sampling import (fold_all, fold_in,
-                                                   fold_lanes, lane_uniform)
+from tinypathtracer_tpu_torch.ops.sampling import lane_keys
 from tinypathtracer_tpu_torch.ops.traverse import closest_hit_bvh
 from tinypathtracer_tpu_torch.render import film, raygen
 from tinypathtracer_tpu_torch.render.integrator import TraceData, trace_paths
@@ -147,15 +146,13 @@ def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key,
     samples sample_offset .. sample_offset + spp - 1 (spp defaults to
     cfg.spp). The lane key is fold_in(fold_in(key, pixel), absolute
     sample), so every draw is independent of batch layout and of how
-    the samples are split into passes. Returns (origins, dirs
-    [P*spp, 3], keys [P*spp, 2])."""
+    the samples are split into passes (`ops.sampling.lane_keys`: one
+    launch of csrc/keys.cu on the card). Returns (origins, dirs [P*spp,
+    3], keys [P*spp, 2])."""
     spp = cfg.spp if spp is None else spp
+    keys, u_cam = lane_keys(key.to(pix.device), pix, spp, sample_offset,
+                            _CAM_TAG)
     lane_pix = pix.repeat_interleave(spp)
-    lane_s = sample_offset + torch.arange(
-        spp, dtype=torch.int64, device=pix.device).repeat(pix.shape[0])
-    with span("tpt.keys"):
-        keys = fold_in(fold_lanes(key, lane_pix), lane_s)
-        u_cam = lane_uniform(fold_all(keys, _CAM_TAG), 2)
     o, d = raygen.camera_rays_u(
         u_cam, scene.cam_to_world, scene.cam_yfov, scene.cam_aspect,
         lane_pix % cfg.width, lane_pix // cfg.width, cfg.width, cfg.height)
