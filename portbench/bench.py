@@ -6,7 +6,10 @@ A cell is an entry of `workloads` in BENCHMARK.json; its configuration
 is `configs/<config>.json` (`file` in BENCHMARK.json), its traffic mix
 `traffic/<traffic>.json`, whose "kind" names the runner
 `kinds/<kind>.py`, the limits of its comparison `limits/<cell>.json`,
-and each of its per-layer metrics a reader `metrics/<metric>.py`.
+and each of its per-layer metrics a reader `metrics/<metric>.py`. A
+configuration's scene and sky builders (`scenes.builder`) and its
+estimator's plain reference (`reference.for_mode`) are found by name
+too.
 """
 
 from __future__ import annotations

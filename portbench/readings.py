@@ -7,8 +7,9 @@ faults', at the cell's own size, in one process, each judged by
         [--control] [--faults]
 
 Per seed FRAMES frames of the program (keys fold_in(seed, i), as a
-window's) and the cell's sampled pixels of them against the reference's;
-with --control the reference computed in TF32 (the control) on the same
+window's) and the cell's sampled pixels of them against the plain
+reference of the configuration's mode (`reference.for_mode`); with
+--control that reference computed in TF32 (the control) on the same
 pixels; with --faults the program with each fault of `faults.FRAME` and
 `faults.SMALL` planted. Prints one JSON line per seed: for each of
 "program", "control" and every fault its numbers and its verdict.
@@ -24,9 +25,8 @@ import sys
 
 import torch
 
-from portbench import bench, compare, faults, scenes
+from portbench import bench, compare, faults, reference, scenes
 from portbench.kinds import frame
-from portbench.reference import tracer as ref
 
 # frames a seed renders: two, so that a fault that repeats a frame shows
 FRAMES = 2
@@ -38,12 +38,14 @@ def _judged(numbers, limits):
 
 
 def frame_readings(cell, seeds, device, control=False, plant=False):
+    est = reference.for_mode(cell.config["mode"])
+    arrays = scenes.build(cell.config)
+
     import tinypathtracer_tpu_torch as T
 
-    arrays = scenes.build(cell.config)
     rcfg = T.RenderConfig(**scenes.render_args(cell.config))
     scene = T.FlatScene.from_numpy(arrays, device)
-    tab = ref.Tables.build(arrays, device)
+    tab = est.Tables.build(arrays, device)
     per_chunk = int(cell.traffic["samples_per_chunk"])
 
     def window(seed):
@@ -54,11 +56,11 @@ def frame_readings(cell, seeds, device, control=False, plant=False):
 
     for seed in seeds:
         keys, (which, pix, chunk, port) = window(seed)
-        want = frame.reference_pixels(tab, keys, which, pix, rcfg)
+        want = frame.reference_pixels(est, tab, keys, which, pix, rcfg)
         out = {"seed": seed, "program": _judged(
             compare.frame_numbers(port, want, chunk), cell.limits)}
         if control:
-            ctl = frame.reference_pixels(tab, keys, which, pix, rcfg,
+            ctl = frame.reference_pixels(est, tab, keys, which, pix, rcfg,
                                          tf32=True)
             out["control"] = _judged(compare.frame_numbers(ctl, want, chunk),
                                      cell.limits)

@@ -1,21 +1,37 @@
 """The scenes and skies that configuration files describe, as the
 port's FlatScene field arrays (numpy alone).
 
-A configuration's "scene" names a function here and gives its arguments
-as data: `quad_scene` builds a scene from a list of quads with named
-materials and a pinhole camera, as a published scene states them, so a
-later configuration of that kind is a new data file alone. The arrays
-take the form of `tinypathtracer_tpu_torch/models/procedural.py`'s
-scenes at commit cfca82b (one object, identity transforms, no texture,
-no delta light). Imports nothing of the port: the reference reads these
-arrays too.
+A configuration's "scene" and "env" each name a builder in "function"
+and give its arguments as data. This module holds two: `quad_scene`
+builds a scene from a list of quads with named materials and a pinhole
+camera, as a published scene states them, and `constant_sky` a sky of
+one radiance. Any other name is the file `builders/<function>.py`,
+loaded by its path; a new builder is a new file, and nothing here is
+edited. The contract:
+
+  * a scene builder is `build(env_radiance, aspect, **arguments) ->
+    dict` of FlatScene field arrays, the keys `quad_scene` returns;
+  * a sky builder is `build(**arguments) -> [H, W, 3] float32`;
+  * a builder imports numpy and the standard library only: the program
+    and the plain reference both read its arrays.
+
+The arrays take the form of `tinypathtracer_tpu_torch/models/
+procedural.py`'s scenes at commit cfca82b (one object, identity
+transforms, no texture, no delta light, for `quad_scene`).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import math
+import re
+from pathlib import Path
 
 import numpy as np
+
+# where a builder that this module does not hold is found, by its name
+BUILDERS = Path(__file__).resolve().parent / "builders"
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 def _unit(v):
@@ -88,8 +104,22 @@ def constant_sky(height: int, width: int, radiance) -> np.ndarray:
         np.asarray(radiance, np.float32), (height, width, 3)))
 
 
-SCENES = {"quad_scene": quad_scene}
-SKIES = {"constant_sky": constant_sky}
+def builder(name: str):
+    """The builder a configuration's "function" names: this module's
+    `quad_scene` or `constant_sky`, else `build` of builders/<name>.py
+    (a name may hold dots, so the file is loaded by its path)."""
+    own = {"quad_scene": quad_scene, "constant_sky": constant_sky}
+    if name in own:
+        return own[name]
+    path = BUILDERS / f"{name}.py"
+    if not NAME.fullmatch(name) or not path.is_file():
+        raise SystemExit(f"no scene or sky builder {name!r}: looked for "
+                         f"{path}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_builder_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build
 
 
 def build(config: dict) -> dict:
@@ -97,9 +127,9 @@ def build(config: dict) -> dict:
     (function and arguments) lit by its "env" (sky and arguments), the
     camera's aspect that of the image."""
     env = dict(config["env"])
-    sky = SKIES[env.pop("function")](**env)
+    sky = builder(env.pop("function"))(**env)
     scene = dict(config["scene"])
-    return SCENES[scene.pop("function")](
+    return builder(scene.pop("function"))(
         env_radiance=sky, aspect=config["width"] / config["height"], **scene)
 
 

@@ -7,7 +7,8 @@ import time
 
 import torch
 
-from portbench import bench, run
+from portbench import bench, faults, run
+from portbench.kinds import frame
 
 CELL = "cornell-frame"
 
@@ -20,9 +21,28 @@ def cell(name: str = CELL) -> bench.Cell:
     return c
 
 
-def execute(name: str = CELL, seed: int = 1234567890123, trace: int = 0,
-            seconds: float = 0.01):
-    """One run of the tiny cell on the CPU: the result line's object."""
+class Ticks:
+    """A clock for the frame kind that reads one second more at every
+    reading: a window of n - 0.5 s then holds n frames, whatever a frame
+    takes."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self) -> float:
+        self.t += 1.0
+        return self.t
+
+
+def execute(c: bench.Cell = None, seed: int = 1234567890123, trace: int = 0,
+            seconds: float = 0.01, frames: int = None):
+    """One run of the tiny cell (or of c) on the CPU: the result line's
+    object. With frames, the window holds that many frames exactly."""
     torch.set_num_threads(2)
-    return run.execute(cell(name), seed, seconds, trace, torch.device("cpu"),
-                       time.time())
+    c = cell() if c is None else c
+    if frames is None:
+        return run.execute(c, seed, seconds, trace, torch.device("cpu"),
+                           time.time())
+    with faults.patched(frame, "time", lambda _: Ticks()):
+        return run.execute(c, seed, frames - 0.5, trace, torch.device("cpu"),
+                           time.time())

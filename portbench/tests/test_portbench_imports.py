@@ -14,12 +14,21 @@ from portbench import bench
 HERE = Path(bench.__file__).resolve().parent
 
 
+PROGRAM = {"tinypathtracer_tpu_torch", "tinypathtracer_tpu", "jax", "jaxlib",
+           "flax"}
+STDLIB = set(sys.stdlib_module_names)
+
+
 def imported(path: Path) -> set:
+    """Top-level names a file imports; a relative import as "." and the
+    sibling's name."""
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.module:
+        elif isinstance(node, ast.ImportFrom) and node.level:
+            names.add("." + (node.module or "").split(".")[0])
+        elif isinstance(node, ast.ImportFrom):
             names.add(node.module.split(".")[0])
     return names
 
@@ -27,16 +36,28 @@ def imported(path: Path) -> set:
 @pytest.mark.parametrize("path", sorted((HERE / "reference").glob("*.py")),
                          ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
+    """torch, numpy, the standard library and its siblings alone."""
     names = imported(path)
-    assert not names & {"tinypathtracer_tpu_torch", "tinypathtracer_tpu",
-                        "jax", "jaxlib"}, names
-    assert names <= {"__future__", "dataclasses", "numpy", "torch"}, names
+    assert not names & PROGRAM, names
+    assert all(n.startswith(".") or n in STDLIB | {"numpy", "torch"}
+               for n in names), names
+
+
+@pytest.mark.parametrize(
+    "path", [HERE / "scenes.py"] + sorted((HERE / "builders").glob("*.py")),
+    ids=lambda p: p.name)
+def test_builders_import_numpy_and_the_standard_library(path):
+    """What the program and the reference both read is built with numpy
+    and the standard library alone: nothing of torch, the program or
+    JAX."""
+    names = imported(path)
+    assert names <= STDLIB | {"numpy"}, names
 
 
 def test_no_source_imports_jax():
     for path in HERE.rglob("*.py"):
-        assert not imported(path) & {"jax", "jaxlib", "flax",
-                                     "tinypathtracer_tpu"}, path
+        assert not imported(path) & PROGRAM - {"tinypathtracer_tpu_torch"}, \
+            path
 
 
 def test_rehearsal_loads_no_jax():
