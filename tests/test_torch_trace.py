@@ -1,9 +1,11 @@
 """The port's spans (`utils/metrics.span`) on the CPU: a profiled frame
 records `tpt.frame` holding `tpt.prepare`, one `tpt.chunk` a chunk (each
-with its `tpt.keys` and, on the megakernel's route, its `tpt.kernel_b`)
-and `tpt.film`, nested by their intervals in the profiler's trace; with
-no profiler a span is one shared null context and enters no profiler
-op; the image does not depend on the profiler.
+with its `tpt.keys` and, on the megakernel's route, its `tpt.kernel_b`;
+on the packet route one `tpt.bounce` a bounce of the modular loop, each
+with one `tpt.kernel_c` a closest-hit query) and `tpt.film`, nested by
+their intervals in the profiler's trace; with no profiler a span is one
+shared null context and enters no profiler op; the image does not
+depend on the profiler.
 """
 
 import contextlib
@@ -16,6 +18,7 @@ import torch
 
 from tinypathtracer_tpu_torch import (RenderConfig, Renderer, prng_key,
                                       trace_profile)
+from tinypathtracer_tpu_torch.ops import packet
 from tinypathtracer_tpu_torch.render import integrator
 from tinypathtracer_tpu_torch.utils import metrics
 
@@ -27,6 +30,9 @@ torch.set_num_threads(2)
 CFG = RenderConfig(width=8, height=6, spp=2, max_depth=3,
                    rays_per_dispatch=32)
 CHUNKS = 3
+# the same frame on the packet traversal (kernel C's twin) under the
+# modular loop
+PACKET = dataclasses.replace(CFG, intersector="packet")
 
 
 @pytest.fixture(scope="module")
@@ -138,3 +144,60 @@ def test_trace_profile_writes_the_spans(scene, tmp_path):
     for name in ("tpt.frame", "tpt.prepare", "tpt.chunk", "tpt.keys",
                  "tpt.kernel_b", "tpt.film"):
         assert name in names, name
+
+
+def _counted(monkeypatch, owner, name, calls):
+    """owner.name patched to append 1 to calls at each call."""
+    orig = getattr(owner, name)
+
+    def call(*args, **kwargs):
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(owner, name, call)
+
+
+def test_packet_route_spans_each_bounce_and_query(scene, monkeypatch):
+    """On the packet route each bounce the loop runs is one tpt.bounce
+    inside its chunk (bounces counted by env_miss, called once a
+    bounce), and each closest-hit query one tpt.kernel_c inside its
+    bounce (queries counted by the twin's calls): two a bounce, the next
+    direction and the estimator's extra ray, the scene having no delta
+    light."""
+    bounces, queries = [], []
+    _counted(monkeypatch, integrator, "env_miss", bounces)
+    _counted(monkeypatch, packet, "_packet_torch", queries)
+    _, spans = _profiled(
+        lambda: Renderer(PACKET, device="cpu").render(scene, prng_key(3)))
+    chunks = [s for s in spans if s[0] == "tpt.chunk"]
+    bounce = [s for s in spans if s[0] == "tpt.bounce"]
+    kernel_c = [s for s in spans if s[0] == "tpt.kernel_c"]
+    assert len(chunks) == CHUNKS
+    assert CHUNKS <= len(bounces) <= CHUNKS * PACKET.max_depth
+    assert len(bounce) == len(bounces)
+    assert len(kernel_c) == len(queries) == 2 * len(bounces)
+    assert sum(len(_inside(spans, c, "tpt.bounce")) for c in chunks) \
+        == len(bounce)
+    assert [len(_inside(spans, b, "tpt.kernel_c")) for b in bounce] \
+        == [2] * len(bounce)
+    assert not any(s[0] == "tpt.kernel_b" for s in spans)
+
+
+def test_packet_route_span_off_enters_no_profiler_op(scene, monkeypatch):
+    assert not torch.autograd._profiler_enabled()
+
+    def refuse(name):
+        raise AssertionError(f"a profiler op was entered for {name}")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    img = Renderer(PACKET, device="cpu").render(scene, prng_key(3))
+    assert bool(torch.isfinite(img).all())
+
+
+def test_packet_route_profiled_frame_is_bit_equal(scene):
+    plain = Renderer(PACKET, device="cpu").render(scene, prng_key(4))
+    traced, spans = _profiled(
+        lambda: Renderer(PACKET, device="cpu").render(scene, prng_key(4)))
+    assert any(s[0] == "tpt.kernel_c" for s in spans)
+    assert any(s[0] == "tpt.bounce" for s in spans)
+    assert torch.equal(plain, traced)

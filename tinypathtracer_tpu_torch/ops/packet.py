@@ -55,6 +55,7 @@ from tinypathtracer_tpu_torch.ops.dense import (BOX_MARGIN, CLUSTER, WoopTris,
                                                 reciprocals, slab, winner_uv)
 from tinypathtracer_tpu_torch.utils import cuda_build
 from tinypathtracer_tpu_torch.utils.math3d import DELTA, REAL_MAX
+from tinypathtracer_tpu_torch.utils.metrics import span
 
 # Triangles per chunk (the JAX package's default `packet_tc`); it halves
 # down to CLUSTER until it divides the padded face count.
@@ -382,11 +383,12 @@ def _packet_cuda(rays, planes, boxes, tc: int, stagings=None):
     visits = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return t, slot, uv, visits
-    status = _lib().tpt_packet_hit(
-        rays.data_ptr(), planes.data_ptr(), boxes.data_ptr(), n, c, tc,
-        t.data_ptr(), slot.data_ptr(), uv.data_ptr(), visits.data_ptr(),
-        None if stagings is None else stagings.data_ptr(),
-        cuda_build.stream_ptr(dev))
+    with span("tpt.kernel_c"):
+        status = _lib().tpt_packet_hit(
+            rays.data_ptr(), planes.data_ptr(), boxes.data_ptr(), n, c, tc,
+            t.data_ptr(), slot.data_ptr(), uv.data_ptr(), visits.data_ptr(),
+            None if stagings is None else stagings.data_ptr(),
+            cuda_build.stream_ptr(dev))
     cuda_build.check_launch(status, "packet_hit")
     packet_hit.launches += 1
     return t, slot, uv, visits
@@ -403,7 +405,8 @@ def packet_hit(rays, planes, boxes, tc: int):
     if rays.device.type == "cuda":
         return _packet_cuda(rays, planes, boxes, tc)
     if rays.device.type == "cpu":
-        return _packet_torch(rays, planes, boxes, tc)
+        with span("tpt.kernel_c"):
+            return _packet_torch(rays, planes, boxes, tc)
     raise ValueError(f"packet_hit has no kernel for device {rays.device}")
 
 

@@ -4,6 +4,8 @@
 The bounce loop runs over a whole ray batch, one closest-hit query per
 bounce and direction (ops/dense.py, kernel A on CUDA), carrying the
 path state (`Paths`) in component form. Two estimators, by cfg.mode.
+On the card, with no gradient recorded, a frame's bounces can run as
+CUDA graphs (`BounceGraphs`): the same kernels, one replay a bounce.
 
 "reference" keeps the CUDA reference estimator's quirks on purpose. A
 bounce is shaded by `scatter` and closed by `end_bounce`; the
@@ -51,6 +53,7 @@ Texel gradients flow through the gathers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -65,14 +68,17 @@ from tinypathtracer_tpu_torch.models.texture import (build_atlas_mips,
                                                      mip_level_shapes,
                                                      wrap_bilinear, wrap_point)
 from tinypathtracer_tpu_torch.ops import shading_c
+from tinypathtracer_tpu_torch.ops.dense import dense_hit
 from tinypathtracer_tpu_torch.ops.lights import (lights_block,
                                                  sample_delta_light)
+from tinypathtracer_tpu_torch.ops.packet import packet_hit
 from tinypathtracer_tpu_torch.ops.sampling import (lane_draws,
                                                    triangle_uniform_u)
 from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, dot_c
 from tinypathtracer_tpu_torch.ops.traverse import _ray_tri_single
 from tinypathtracer_tpu_torch.utils.math3d import (f32_reciprocal, fma, sqrt,
                                                    vcross, vdot, xla_cumsum)
+from tinypathtracer_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -563,7 +569,8 @@ HitFn = Callable[..., tuple]
 
 
 def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
-                origins, dirs, lane_keys, stored_hits=None, uniforms=None):
+                origins, dirs, lane_keys, stored_hits=None, uniforms=None,
+                graphs=None):
     """Trace a batch of rays to completion; returns radiance [N, 3].
 
     lane_keys: [N, 2] keys, one per ray lane (contiguous int64). Every
@@ -589,17 +596,24 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
     from them, its closest-hit queries included (stored hits are
     replayed, no kernel runs). Hit ids are detached and the intersectors
     deterministic, so the recompute equals the forward bit for bit.
+
+    graphs: the `BounceGraphs` whose buffers data and closest_hit's
+    tables are (`BounceGraphs.bind`), used when autograd does not record
+    and no stored_hits or uniforms are given (None: every bounce runs op
+    by op).
     """
     fields = [getattr(data, f.name) for f in dataclasses.fields(data)]
     remat = torch.is_grad_enabled() and any(
         x.requires_grad for x in [origins, dirs] + fields)
+    if remat or stored_hits is not None or uniforms is not None:
+        graphs = None
     return trace_bounces(data, cfg, closest_hit, origins, dirs, lane_keys,
-                         stored_hits, uniforms, remat)
+                         stored_hits, uniforms, remat, graphs)
 
 
 def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                   origins, dirs, lane_keys, stored_hits, uniforms,
-                  remat: bool):
+                  remat: bool, graphs=None):
     """`trace_paths` with the rematerialisation chosen by the caller:
     False where the caller differentiates the result at once and its
     graph never outlives the call (the megakernel's stored-hit backward,
@@ -613,9 +627,9 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
         fid, t, uv = closest_hit(o.detach(), d.detach(), mask=mask)
         return fid, t.detach(), uv.detach()
 
-    lights = lights_block(data)
+    lights = lights_block(data) if graphs is None else graphs.lights
 
-    def bounce(depth: int, *carry):
+    def bounce(depth: int, keys, *carry):
         # carry: o, d, thr, rad (three [N] tensors each), alive, and the
         # physical estimator's prev_spec (the last bounce was a camera ray
         # or specular) and prev_pdf (its solid-angle pdf, 0 there)
@@ -623,7 +637,7 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                    rad=carry[9:12], alive=carry[12])
         prev_spec, prev_pdf = carry[13], carry[14]
         if uniforms is None:
-            u = lane_draws(lane_keys, depth, 1, 9 if physical else 6)
+            u = lane_draws(keys, depth, 1, 9 if physical else 6)
         else:
             u = uniforms[8 * depth:8 * depth + 6]
         o3, d3 = torch.stack(st.o, dim=1), torch.stack(st.d, dim=1)
@@ -670,15 +684,191 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
         return (*st.o, *st.d, *st.thr, *st.rad, st.alive, prev_spec,
                 prev_pdf)
 
-    st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
-    carry = (*st.o, *st.d, *st.thr, *st.rad, st.alive, st.alive,
-             torch.zeros_like(st.thr[0]))
-    for depth in range(cfg.max_depth):
-        if not bool(carry[12].any()):
-            break
+    if graphs is not None:
+        carry = graphs.trace(_start, bounce, (origins, dirs, lane_keys),
+                             cfg.max_depth)
+        return torch.stack(carry[9:12], dim=1)
+
+    def step(depth, carry):
         if remat:
-            carry = checkpoint(bounce, depth, *carry, use_reentrant=False,
-                               preserve_rng_state=False)
-        else:
-            carry = bounce(depth, *carry)
+            # the keys ride in the function, not among the saved inputs
+            return checkpoint(functools.partial(bounce, depth, lane_keys),
+                              *carry, use_reentrant=False,
+                              preserve_rng_state=False)
+        return bounce(depth, lane_keys, *carry)
+
+    carry = _start(origins, dirs)
+    carry = _bounce_loop(step, carry, bool(carry[12].any()), cfg.max_depth)
     return torch.stack(carry[9:12], dim=1)
+
+
+def _start(origins, dirs):
+    """The carry of trace_bounces' loop before the first bounce."""
+    st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
+    return (*st.o, *st.d, *st.thr, *st.rad, st.alive, st.alive,
+            torch.zeros_like(st.thr[0]))
+
+
+def _bounce_loop(step, carry, alive: bool, max_depth: int):
+    """carry = step(depth, carry) for depth 0, 1, ... while any lane is
+    alive (alive: whether one is before the first). One host sync a
+    bounce, whether any lane is alive; a bounce's span holds the sync
+    that closes it (none after the last bounce)."""
+    for depth in range(max_depth):
+        if not alive:
+            break
+        with span("tpt.bounce"):
+            carry = step(depth, carry)
+            alive = depth + 1 < max_depth and bool(carry[12].any())
+    return carry
+
+
+# the kernels a bounce may launch that count their launches
+# (`<function>.launches`); a graph's replay adds what its capture counted
+_COUNTED = (lane_draws, packet_hit, dense_hit)
+
+
+class BounceGraphs:
+    """CUDA graphs of the modular loop's bounces, kept from frame to frame
+    by a renderer: a replay is one launch where a bounce runs ~400
+    kernels op by op, so a chunk waits on the card and not on the host.
+
+    A graph is kept a (lane count, depth). The first chunk of a lane
+    count runs op by op and warms up its kernels; a later one captures
+    each bounce it reaches that has run before, and from then on
+    replays it. Bounce 0's graph starts the carry from the chunk's
+    rays and keys, copied into the buffers it was captured on; bounce
+    d's reads bounce d - 1's outputs, so it replays only after that
+    graph did in the same chunk, and a chunk that leaves the graphs
+    runs its remaining bounces op by op.
+
+    A graph reads the tensors it was captured on, so each frame's trace
+    data and closest-hit tables are copied into buffers that stay
+    (`bind`), and the lights table is built there; a frame whose tables
+    differ from the last in a shape, a type or a number takes new
+    buffers and drops the graphs. All the graphs share one memory pool
+    and replay one after another, on the stream of the caller.
+    """
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.signature = None
+
+    def bind(self, data: TraceData, tables):
+        """(data, tables), the trace data and the closest hit's tables
+        of a frame (dataclasses of tensors and numbers), as the buffers
+        the graphs read, this frame's values copied in."""
+        sig = _signature((data, tables))
+        if sig == self.signature:
+            _copy_into(self.bound, (data, tables))
+            self.lights.copy_(lights_block(self.bound[0]))
+            return self.bound
+        torch.cuda.current_stream(self.device).synchronize()
+        self.signature = sig
+        self.pool = torch.cuda.graph_pool_handle()
+        self.lanes = {}     # lane count -> (origins, dirs, keys) buffers
+        self.graphs = {}    # (lane count, depth) -> (graph, carry, counts)
+        self.warm = set()   # (lane count, depth) run op by op once
+        self.bound = _clone((data, tables))
+        self.lights = lights_block(self.bound[0]).clone()
+        return self.bound
+
+    def trace(self, start, bounce, lanes, max_depth: int):
+        """The loop of trace_bounces over a chunk's lanes (origins [N,
+        3], dirs [N, 3], keys [N, 2]); returns its last carry."""
+        n = lanes[0].shape[0]
+        if n == 0 or max_depth < 1 or (n, 0) not in self.warm:
+            # the first chunk of n lanes: op by op, warming up
+            def warm_up(depth, carry):
+                self.warm.add((n, depth))
+                return bounce(depth, lanes[2], *carry)
+
+            carry = start(*lanes[:2])
+            return _bounce_loop(warm_up, carry, bool(carry[12].any()),
+                                max_depth)
+        bufs = self.lanes.get(n)
+        if bufs is None:
+            bufs = self.lanes[n] = tuple(torch.empty_like(x) for x in lanes)
+        for b, x in zip(bufs, lanes):
+            b.copy_(x)
+        chained = True      # the carry is the last graph's output
+
+        def step(depth, carry):
+            nonlocal chained
+            key = (n, depth)
+            if chained and key not in self.graphs and key in self.warm:
+                if depth == 0:
+                    self.graphs[key] = self._capture(
+                        lambda: bounce(0, bufs[2], *start(*bufs[:2])))
+                else:
+                    self.graphs[key] = self._capture(
+                        lambda: bounce(depth, bufs[2], *carry))
+            if chained and key in self.graphs:
+                graph, out, counts = self.graphs[key]
+                graph.replay()
+                for fn, c in zip(_COUNTED, counts):
+                    fn.launches += c
+                return out
+            chained = False
+            self.warm.add(key)
+            if depth == 0:
+                carry = start(*bufs[:2])
+            return bounce(depth, bufs[2], *carry)
+
+        return _bounce_loop(step, None, True, max_depth)
+
+    def _capture(self, fn):
+        """(graph, fn's outputs, the counted launches of one replay):
+        fn captured on the side stream, not run."""
+        graph = torch.cuda.CUDAGraph()
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        before = [fn_.launches for fn_ in _COUNTED]
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        main.wait_stream(self.stream)
+        counts = [fn_.launches - b for fn_, b in zip(_COUNTED, before)]
+        for fn_, b in zip(_COUNTED, before):
+            fn_.launches = b
+        return graph, out, counts
+
+
+def _signature(x):
+    """The shapes, types and numbers of a dataclass of tensors (nested)."""
+    if isinstance(x, torch.Tensor):
+        return (x.shape, x.dtype, x.device, x.stride())
+    if dataclasses.is_dataclass(x):
+        return (type(x),) + tuple(_signature(getattr(x, f.name))
+                                  for f in dataclasses.fields(x))
+    if isinstance(x, tuple):
+        return tuple(_signature(v) for v in x)
+    return x
+
+
+def _clone(x):
+    """A dataclass of tensors (nested) with every tensor cloned."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    return x
+
+
+def _copy_into(dst, src):
+    """Copy the tensors of src into dst's, of the same signature."""
+    if isinstance(src, torch.Tensor):
+        dst.copy_(src)
+    elif dataclasses.is_dataclass(src):
+        for f in dataclasses.fields(src):
+            _copy_into(getattr(dst, f.name), getattr(src, f.name))
+    elif isinstance(src, tuple):
+        for d, x in zip(dst, src):
+            _copy_into(d, x)

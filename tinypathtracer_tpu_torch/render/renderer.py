@@ -11,8 +11,11 @@ chunking. A chunk runs the megakernel (ops/mega.py) when the scene
 qualifies and `cfg.megakernel` is set, else the modular bounce loop
 (render/integrator.py) on the dense closest hit (ops/dense.py) or,
 above 8192 padded faces or on request, the packet traversal
-(ops/packet.py): `resolve_intersector`. Physical mode always runs the
-modular loop (the megakernel is reference mode only). The oracles "bvh" (the LBVH
+(ops/packet.py): `resolve_intersector`. On the card, in reference mode
+on an untextured scene, `Renderer.render` replays each bounce of the
+modular loop on kernel A or C as a CUDA graph (`bind_graphs`).
+Physical mode always runs the modular loop (the megakernel is reference
+mode only). The oracles "bvh" (the LBVH
 walk, ops/traverse.py) and "bruteforce" (ops/intersect.py) run the
 modular loop only; `Renderer` refuses a tree deeper than the bvh walk's
 stack holds.
@@ -20,7 +23,9 @@ stack holds.
 Under a torch profiler the frame records its layers as ranges
 (`utils.metrics.span`): `tpt.frame` (one render), `tpt.prepare` (the
 frame's tables), `tpt.chunk` (one chunk), `tpt.keys` (the threefry key
-chain), `tpt.kernel_b` (the megakernel's launch) and `tpt.film`.
+chain), `tpt.kernel_b` (the megakernel's launch), `tpt.bounce` (one
+bounce of the modular loop, its closing host sync included),
+`tpt.kernel_c` (one launch of the packet traversal) and `tpt.film`.
 
 Kernels run where the scene's tensors live: on CUDA the hand-written
 kernels, on the CPU their plain PyTorch twins. `render_pixel_ids` and
@@ -52,7 +57,9 @@ from tinypathtracer_tpu_torch.ops.packet import (PacketTris,
 from tinypathtracer_tpu_torch.ops.sampling import lane_keys
 from tinypathtracer_tpu_torch.ops.traverse import closest_hit_bvh
 from tinypathtracer_tpu_torch.render import film, raygen
-from tinypathtracer_tpu_torch.render.integrator import TraceData, trace_paths
+from tinypathtracer_tpu_torch.render.integrator import (BounceGraphs,
+                                                        TraceData,
+                                                        trace_paths)
 from tinypathtracer_tpu_torch.utils import native
 from tinypathtracer_tpu_torch.utils.metrics import span
 
@@ -67,13 +74,16 @@ class PipelineState:
     data and the tables of the intersector it resolved to, which
     `hit_fn` dispatches on: the packet traversal's chunk tables (whose
     `woop` is `woop`), else the LBVH, else the Woop triangles of the
-    dense closest hit (kernels A and B), else none (the brute force)."""
+    dense closest hit (kernels A and B), else none (the brute force).
+    graphs: the CUDA graphs that the modular loop's bounces run as, whose
+    buffers data and the tables are (`bind_graphs`); None: op by op."""
 
     scene: FlatScene
     data: TraceData
     woop: Optional[WoopTris]
     packet: Optional[PacketTris] = None
     bvh: Optional[BVH] = None
+    graphs: Optional[BounceGraphs] = None
 
 
 def resolve_intersector(cfg: RenderConfig, n_faces: int) -> str:
@@ -159,18 +169,45 @@ def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key,
     return o, d, keys
 
 
+def uses_megakernel(state: PipelineState, cfg: RenderConfig) -> bool:
+    """Whether a chunk of the state runs the megakernel (kernel B)."""
+    return (cfg.megakernel and state.packet is None
+            and state.woop is not None
+            and mega_available(state.data, cfg, state.woop))
+
+
+def bind_graphs(graphs: BounceGraphs, state: PipelineState,
+                cfg: RenderConfig) -> PipelineState:
+    """The state bound to graphs, its trace data and closest-hit tables
+    in their buffers (`BounceGraphs.bind`), where the modular loop's
+    bounces run as CUDA graphs: on the card, with no gradient recorded,
+    in reference mode, on an untextured scene, on kernel C or kernel A
+    (not the megakernel). The state as it was elsewhere."""
+    if not (state.scene.device.type == "cuda"
+            and not torch.is_grad_enabled() and cfg.mode == "reference"
+            and not state.data.textured and state.woop is not None
+            and not uses_megakernel(state, cfg)):
+        return state
+    if state.packet is not None:
+        data, packet = graphs.bind(state.data, state.packet)
+        return dataclasses.replace(state, data=data, packet=packet,
+                                   woop=packet.woop, graphs=graphs)
+    data, woop = graphs.bind(state.data, state.woop)
+    return dataclasses.replace(state, data=data, woop=woop, graphs=graphs)
+
+
 def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key,
                      spp: Optional[int] = None, sample_offset: int = 0):
     """Radiance SUM over spp samples (cfg.spp by default), the absolute
     sample indices sample_offset .. sample_offset + spp - 1, for pixel
     ids pix [P] (row-major y * width + x). Returns [P, 3] float32. The
     sum form keeps progressive accumulation exact: passes over disjoint
-    sample ranges add up to one pass over their union."""
+    sample ranges add up to one pass over their union. A state bound to
+    graphs (`bind_graphs`) runs the modular loop's bounces as CUDA
+    graphs; the image is the same bit for bit as op by op."""
     spp = cfg.spp if spp is None else spp
     data = state.data
-    use_mega = (cfg.megakernel and state.packet is None
-                and state.woop is not None
-                and mega_available(data, cfg, state.woop))
+    use_mega = uses_megakernel(state, cfg)
     hit = hit_fn(state, cfg)
     n = pix.shape[0]
     # all spp of a pixel stay in one chunk (the sample sum is in-chunk)
@@ -185,17 +222,23 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key,
             if use_mega:
                 rad = trace_paths_mega(data, cfg, state.woop, o, d, keys)
             else:
-                rad = trace_paths(data, cfg, hit, o, d, keys)
+                rad = trace_paths(data, cfg, hit, o, d, keys,
+                                  graphs=state.graphs)
             out.append(rad.reshape(m, spp, 3).sum(dim=1))
     return torch.cat(out, dim=0)
 
 
 def render_frame(scene: FlatScene, cfg: RenderConfig, key,
                  prebuilt_bvh: Optional[BVH] = None,
-                 spp: Optional[int] = None, sample_offset: int = 0):
+                 spp: Optional[int] = None, sample_offset: int = 0,
+                 graphs: Optional[BounceGraphs] = None):
     """Render one frame; returns the radiance SUM image [H, W, 3] over
-    spp samples from sample_offset on (render_pixel_ids)."""
+    spp samples from sample_offset on (render_pixel_ids). graphs: a
+    `BounceGraphs` kept across frames, used where `bind_graphs` binds
+    the frame's state to it."""
     state = prepare_state(scene, cfg, prebuilt_bvh)
+    if graphs is not None:
+        state = bind_graphs(graphs, state, cfg)
     pix = torch.arange(cfg.n_pixels, dtype=torch.int64, device=scene.device)
     return render_pixel_ids(state, cfg, pix, key, spp, sample_offset).reshape(
         cfg.height, cfg.width, 3)
@@ -226,6 +269,9 @@ class Renderer:
         self.device = resolve_device(device, "Renderer")
         self._bvh_cache = {}
         self._stack_checked = set()
+        # the bounces' CUDA graphs, kept from frame to frame
+        self._graphs = (BounceGraphs(self.device)
+                        if self.device.type == "cuda" else None)
 
     def _validate_stack(self, scene: FlatScene):
         """The stack guard of the "bvh" walk: a Karras LBVH can
@@ -267,7 +313,8 @@ class Renderer:
         with torch.inference_mode(), span("tpt.frame"):
             self._validate_stack(scene)
             rad_sum = render_frame(scene.to(self.device), self.cfg,
-                                   key.to(self.device), self._bvh_for(scene))
+                                   key.to(self.device), self._bvh_for(scene),
+                                   graphs=self._graphs)
             with span("tpt.film"):
                 return film.to_image(rad_sum, self.cfg.spp)
 
