@@ -6,8 +6,8 @@ one NVIDIA GPU.
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits
 non-zero):
-  1. the card, the versions, and the build of the eight CUDA kernels
-     (six sources, one nvcc each, all at once) from this checkout;
+  1. the card, the versions, and the build of the CUDA kernels (seven
+     sources, one nvcc each, all at once) from this checkout;
   2. kernel A (dense closest hit, SUPER-gated from 4,096 padded faces)
      against its plain PyTorch twin on the card, exactly ((slot, t, u,
      v)): on the room (ungated), the big room (gated, 8 runs) and the
@@ -83,7 +83,9 @@ non-zero):
      memory), then one profiled run of each with kernel C's total and
      mean per launch; each must launch kernel C and neither kernel A
      nor B, the step (each bounce rematerialised: its backward reruns
-     the queries) exactly twice a frame's launches;
+     the queries) exactly twice a frame's launches; the frame's bounces
+     shaded by csrc/shade.cu's two kernels (once each a bounce), the
+     step's by the torch code (autograd records);
  12. the same frame through the modular loop on kernel A, forced through
      the pipeline state: bit-equal to the packet frame;
  13. kernels D (tensor-core transform by wgmma, both precisions; the
@@ -115,9 +117,11 @@ non-zero):
      intersector="bvh" (device and host tree) and "bruteforce"; their
      hits equal the brute force's, their frames each other's and the
      dense frame's within 1e-5 but for at most ORACLE_EDGE_PIXELS tied
-     edge pixels (counted), kernels A
-     and B launch 0 times; the stack guard refuses a tree one level too
-     deep for the stack;
+     edge pixels (counted), no closest-hit kernel launches (kernels A,
+     B, C and the labs' 0 times), and their bounces are shaded on the
+     card by csrc/shade.cu's two kernels, as every reference-mode route
+     of the modular loop there; the stack guard refuses a tree one
+     level too deep for the stack;
  17. the scene-file entry point: the room, the 3-light room and the
      large scene written as glTF (write_gltf), loaded through load_scene
      and flattened onto the card, each equal to its procedural arrays;
@@ -183,9 +187,9 @@ non-zero):
      error logged); then gloo ranks spawned onto the card: meshes (2, 1)
      bit-equal to phase 4's frame, (1, 2) and (2, 2) within 1e-5, the
      large scene at (2, 1) bit-equal to phase 11's; per rank its
-     launches (kernel B only on the room, C only on the large scene),
-     wall time and peak memory (ranks sharing one card measure no
-     scaling);
+     launches (kernel B only on the room, C and the shade kernels only
+     on the large scene), wall time and peak memory (ranks sharing one
+     card measure no scaling);
  31. make_sharded_train_step on the room at 512x512 @16 spp d8 (Adam
      1e-2, zero target) at (2, 1) and (1, 2): loss within 1e-6 and
      parameters within rtol 1e-5 of phase 7's step, equal on every rank,
@@ -217,7 +221,25 @@ non-zero):
      lane_draws launch a chunk) and one modular frame (one lane_keys a
      chunk, a lane_draws a bounce run), and both kernels' times at a
      2**20-lane chunk beside their bound (the integer ALU pipe or bytes)
-     and the int64 chain's.
+     and the int64 chain's;
+ 35. csrc/shade.cu's kernels (the modular loop's reference-mode
+     shading) against their plain twins, the integrator's torch code
+     (ops/shade `_shade_hits_torch`, `_close_bounce_torch`), on one
+     2**20-lane chunk of the tetra-frame cell (the SPD tetra, 1920x1080
+     @16 spp d8, kernel C, no light) and of the large scene with the
+     point, spot and directional light under the gradient sky: every
+     output of both kernels on every bounce of the chunk, launched op by
+     op and replayed from a CUDA graph, equal value for value to the
+     twins' on the same inputs, and the chunk's radiance through the
+     kernels, op by op and as BounceGraphs, equal to the torch loop's
+     (the rule forced off); then the launch counters zeroed just before
+     a tetra-frame frame through Renderer.render (its third: every
+     bounce a graph's replay) and read just after: each shade kernel
+     once and kernel C twice a bounce's draw; and both kernels' times
+     on every bounce of each chunk (device time a launch, replayed from
+     a CUDA graph) beside their bound (SHADE_HITS_BYTES,
+     CLOSE_BOUNCE_BYTES by the lanes that go on), and the twins' at
+     bounce 0.
 Each kernel's bound is the least time the card could take for the work
 of this run's inputs: the larger of its fp32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s;
@@ -305,6 +327,12 @@ ORACLE_EDGE_PIXELS = 6
 KEY_CHUNK_PIXELS = 65536
 ALU_PEAK = 132 * 64 * 1.98e9
 ALU_OPS_THREEFRY = 40
+# csrc/shade.cu's bytes a lane (its header's count): shade_hits reads and
+# writes 151 B, 12 B more a light, on every lane; close_bounce 151 B, 8 B
+# more a light, on a lane that goes on and 98 B on one that does not. The
+# shading rows and the environment stay in L2
+SHADE_HITS_BYTES = (151, 12)
+CLOSE_BOUNCE_BYTES = (151, 8, 98)
 
 
 def log(*args):
@@ -830,9 +858,11 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
 
 
 def zero_launches():
-    from tinypathtracer_tpu_torch.ops import dense, mega, packet
+    from tinypathtracer_tpu_torch.ops import dense, mega, packet, shade
     from tinypathtracer_tpu_torch.tools import lab4, lab5_diag
 
+    shade.shade_hits.launches = 0
+    shade.close_bounce.launches = 0
     dense.dense_hit.launches = 0
     mega.mega_trace.launches = 0
     mega.mega_trace.launches_save_hits = 0
@@ -843,10 +873,12 @@ def zero_launches():
 
 
 def read_launches():
-    from tinypathtracer_tpu_torch.ops import dense, mega, packet
+    from tinypathtracer_tpu_torch.ops import dense, mega, packet, shade
     from tinypathtracer_tpu_torch.tools import lab4, lab5_diag
 
-    return {"packet": packet.packet_hit.launches,
+    return {"shade_hits": shade.shade_hits.launches,
+            "close_bounce": shade.close_bounce.launches,
+            "packet": packet.packet_hit.launches,
             "dense": dense.dense_hit.launches,
             "mega": mega.mega_trace.launches,
             "mega_save_hits": mega.mega_trace.launches_save_hits,
@@ -860,6 +892,17 @@ def check_packet_route(launches, what):
             and launches["mega"] == 0 and launches["mega_save_hits"] == 0):
         raise AssertionError(f"{what} must launch kernel C and neither "
                              f"kernel A nor B: {launches}")
+
+
+def check_shaded(launches, what, shaded=True):
+    """Where shaded, csrc/shade.cu's two kernels launched, once each a
+    bounce run op by op or replayed (the modular loop's reference
+    bounces on the card, `integrator.fused_shading`); else neither."""
+    n = launches["shade_hits"]
+    if (n != launches["close_bounce"]) or (n > 0) != shaded:
+        raise AssertionError(f"{what} must launch the shade kernels "
+                             f"{'once each a bounce' if shaded else 'never'}"
+                             f": {launches}")
 
 
 def large_scene_paths(T, cfg, host_scene, key, dev):
@@ -889,12 +932,16 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
         f"{best * 1e3:.1f} ms, {n_rays / best:,.0f} rays/s, image mean "
         f"{float(img.mean()):.5f}; launches in 3 frames {frame_launches}")
     check_packet_route(frame_launches, "the large-scene frame")
+    check_shaded(frame_launches, "the large-scene frame")
     mean_ms = log_kernel_share("large-scene frame",
                                profile_step("large-scene frame", r.render,
                                             host_scene, key))
+    # the same frame op by op: the Renderer's replays call no Python
+    st = prepare_state(host_scene.to(dev), cfg)
     mean_bound, count = frame_packet_bound(
-        lambda: r.render(host_scene, key),
-        prepare_state(host_scene.to(dev), cfg).packet)
+        lambda: render_pixel_ids(st, cfg, torch.arange(cfg.n_pixels,
+                                                       device=dev),
+                                 key.to(dev)), st.packet)
     log(f"  kernel C's bound in the frame, from each launch's visits: "
         f"{mean_bound:.3f} ms a launch over {count} launches (mean "
         f"{mean_ms:.2f} ms a launch, {mean_ms / mean_bound:.1f}x)")
@@ -930,6 +977,8 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
         f"{n_rays / best_step:,.0f} fwd+bwd camera rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB; launches in 4 steps {step_launches}")
     check_packet_route(step_launches, "the large-scene train step")
+    check_shaded(step_launches, "the large-scene train step (autograd "
+                 "records: the torch code shades)", shaded=False)
     want = 4 * 2 * frame_launches["packet"] // 3
     if step_launches["packet"] != want:
         raise AssertionError(f"4 rematerialised large-scene steps must "
@@ -1189,7 +1238,8 @@ def log_kernel_share(what, rows, label="C", symbol="packet_hit_kernel"):
 def frame_packet_bound(render, pk):
     """The bound of kernel C's mean launch in one render() of the large
     frame: each launch's work from its own visit counts (packet_hit is
-    wrapped for that frame only)."""
+    wrapped for that frame only). render() runs op by op: a CUDA graph's
+    replay calls no packet_hit."""
     from tinypathtracer_tpu_torch.ops import packet
 
     real, bounds = packet.packet_hit, []
@@ -1482,8 +1532,12 @@ def oracle_phase(T, host_room, dev):
             f"{time.perf_counter() - t0:.1f} s, "
             f"image mean {float(frames[name].mean()):.5f}")
     launches = read_launches()
-    if any(launches.values()):
+    hit_kernels = {k: v for k, v in launches.items()
+                   if k not in ("shade_hits", "close_bounce") and v}
+    if hit_kernels:
         raise AssertionError(f"the oracle routes launched kernels: {launches}")
+    # their bounces are shaded on the card as the dense route's are
+    check_shaded(launches, "the oracle routes")
     for name in ("bvh device", "bvh host"):
         if not torch.equal(frames[name], frames["bruteforce"]):
             raise AssertionError(f"{name} frame != bruteforce frame")
@@ -2253,26 +2307,46 @@ def progressive_phase(T, room_t, cfg, key, room_frame, tmp):
     return steps, sum(steps), peak, total
 
 
-class twin_kernels:
+class torch_shading:
+    """Context: the modular loop's bounces shaded by the torch code on
+    the card, the rule that picks csrc/shade.cu's kernels
+    (integrator.fused_shading) forced off."""
+
+    def __enter__(self):
+        from tinypathtracer_tpu_torch.render import integrator
+
+        self.real = integrator.fused_shading
+        integrator.fused_shading = lambda *args: False
+        return self
+
+    def __exit__(self, *exc):
+        from tinypathtracer_tpu_torch.render import integrator
+
+        integrator.fused_shading = self.real
+        return False
+
+
+class twin_kernels(torch_shading):
     """Context: kernels A and C replaced, in ops/dense and ops/packet, by
-    their plain twins on the same (card) tensors: the twin route of a
-    comparison. The twins count no launch."""
+    their plain twins on the same (card) tensors, and the bounces shaded
+    by the torch code (`torch_shading`): the twin route of a comparison.
+    The twins count no launch."""
 
     def __enter__(self):
         from tinypathtracer_tpu_torch.ops import dense, packet
 
-        self.real = dense.dense_hit, packet.packet_hit
+        self.kernels = dense.dense_hit, packet.packet_hit
         dense.dense_hit = lambda rays, woop, mask=None: dense._dense_torch(
             rays, woop.planes, woop.sp_boxes if dense.gated(woop) else None,
             mask)
         packet.packet_hit = packet._packet_torch
-        return self
+        return super().__enter__()
 
     def __exit__(self, *exc):
         from tinypathtracer_tpu_torch.ops import dense, packet
 
-        dense.dense_hit, packet.packet_hit = self.real
-        return False
+        dense.dense_hit, packet.packet_hit = self.kernels
+        return super().__exit__(*exc)
 
 
 def aov_phase(T, scenes, cfg, key, dev):
@@ -2465,9 +2539,13 @@ def shard_rank(rank, world, tmp, meshes, large_mesh, train_meshes):
     dist.destroy_process_group()
 
 
-def check_rank_launches(launches, kernel, what):
-    """A rank's launches: kernel (a read_launches key) > 0, no other."""
-    others = {k: v for k, v in launches.items() if k != kernel and v}
+def check_rank_launches(launches, kernel, what, shaded=False):
+    """A rank's launches: kernel (a read_launches key) > 0, no other; where
+    shaded, the shade kernels besides (`check_shaded`)."""
+    if shaded:
+        check_shaded(launches, what)
+    others = {k: v for k, v in launches.items() if k != kernel and v
+              and not (shaded and k in ("shade_hits", "close_bounce"))}
     if not launches[kernel] or others:
         raise AssertionError(f"{what}: want {kernel} launches only, got "
                              f"{launches}")
@@ -2530,7 +2608,8 @@ def shard_frames_phase(T, cfg, key, host_room, room_frame, large_frame,
                     f"{len(ranks)} on {r['device']} (gloo): {ms:.1f} ms, "
                     f"peak {peak:.2f} GiB, launches {launches}")
                 check_rank_launches(launches, kernel,
-                                    f"rank {rank}, {name} {shape}")
+                                    f"rank {rank}, {name} {shape}",
+                                    shaded=kernel == "packet")
                 total[kernel] = total.get(kernel, 0) + launches[kernel]
                 if not torch.equal(img, first[0]):
                     raise AssertionError(f"{name} {shape}: ranks' frames "
@@ -2873,6 +2952,261 @@ def keys_phase(T, sky, dev):
     return rows
 
 
+def same_values(a, b) -> bool:
+    """a and b equal value for value, NaN where the other is NaN."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def shade_outputs(out) -> dict:
+    """shade_hits' `Shaded` or close_bounce's next carry, by name."""
+    if isinstance(out, tuple):
+        return dict(zip(("o", "d", "thr", "rad", "alive"), out))
+    return {f.name: getattr(out, f.name) for f in dataclasses.fields(out)}
+
+
+def differing(got, want) -> dict:
+    """The outputs of got that differ from want's: lanes that differ (the
+    first axis of [N] and [N, 3], the second of [L, N, 3])."""
+    bad = {}
+    for name, w in shade_outputs(want).items():
+        g = shade_outputs(got)[name]
+        if g.shape != w.shape or not same_values(g, w):
+            off = (g != w) & ~(g.isnan() & w.isnan()) \
+                if g.is_floating_point() else g != w
+            if off.dim() == 3:
+                off = off.any(0)
+            bad[name] = int(off.reshape(off.shape[0], -1).any(1).sum()) \
+                if g.shape == w.shape else f"shape {tuple(g.shape)}"
+    return bad
+
+
+def replayed(fn, args):
+    """fn(*args)'s outputs, fn captured in a CUDA graph on args (after a
+    warm-up on a side stream) and the graph replayed once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def graph_ms(fn, args, launches=10, reps=5):
+    """Device ms of one fn(*args): a CUDA graph of `launches` calls
+    replayed between CUDA events, the median of reps replays over
+    launches (the host's enqueueing, longer than these kernels, stays
+    out)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn(*args)
+    ms, _ = cuda_ms(graph.replay, reps)
+    return ms / launches
+
+
+def shaded_chunk(state, cfg, pix, key):
+    """(radiance sums [P, 3], the calls of each bounce) of pixel ids pix
+    through the kernels' route op by op; a bounce's calls are [shade_hits'
+    arguments, its Shaded, close_bounce's arguments, its next carry]."""
+    from tinypathtracer_tpu_torch.ops import shade
+    from tinypathtracer_tpu_torch.render import integrator
+    from tinypathtracer_tpu_torch.render.renderer import render_pixel_ids
+
+    calls = []
+
+    def hits(*args):
+        out = shade.shade_hits(*args)
+        calls.append([args, out])
+        return out
+
+    def close(*args):
+        out = shade.close_bounce(*args)
+        calls[-1] += [args, out]
+        return out
+
+    integrator.shade_hits, integrator.close_bounce = hits, close
+    try:
+        rad = render_pixel_ids(state, cfg, pix, key)
+    finally:
+        integrator.shade_hits = shade.shade_hits
+        integrator.close_bounce = shade.close_bounce
+    torch.cuda.synchronize()
+    return rad, calls
+
+
+def shade_bound(args, sh, n_lights):
+    """(shade_hits' bound, close_bounce's bound) in ms on the bounce whose
+    shade_hits arguments and output are args and sh: their bytes over
+    3.35 TB/s, close_bounce's by the lanes that go on."""
+    from tinypathtracer_tpu_torch.tools.common import HBM_BYTES_PER_S
+
+    n, live = args[0].shape[0], int(sh.live.sum())
+    hits = n * (SHADE_HITS_BYTES[0] + SHADE_HITS_BYTES[1] * n_lights)
+    close = (live * (CLOSE_BOUNCE_BYTES[0] + CLOSE_BOUNCE_BYTES[1] * n_lights)
+             + (n - live) * CLOSE_BOUNCE_BYTES[2])
+    return hits / HBM_BYTES_PER_S * 1e3, close / HBM_BYTES_PER_S * 1e3, live
+
+
+def shade_phase(T, sky, dev):
+    """Phase 35: csrc/shade.cu's kernels against their plain twins (the
+    integrator's torch code, ops/shade `_shade_hits_torch` and
+    `_close_bounce_torch`) at the main path's shapes, the counters over a
+    tetra-frame frame, and the kernels' times beside their bound. Returns
+    the kernels JSON rows of shade_hits and close_bounce."""
+    import json as json_
+    from pathlib import Path
+
+    from portbench import scenes as bench_scenes
+    from tinypathtracer_tpu_torch.ops import sampling, shade
+    from tinypathtracer_tpu_torch.render.integrator import BounceGraphs
+    from tinypathtracer_tpu_torch.render.renderer import (bind_graphs,
+                                                          prepare_state,
+                                                          render_pixel_ids)
+    from tinypathtracer_tpu_torch.tools.lab_mega import with_lights
+
+    config = json_.loads((Path(__file__).parent / "portbench" / "configs"
+                          / "spd-tetra.json").read_text())
+    tetra_cfg = T.RenderConfig(**bench_scenes.render_args(config))
+    tetra = T.FlatScene.from_numpy(bench_scenes.build(config), "cpu")
+    lit = with_lights(T.sphere_grid_scene(*LARGE, env_radiance=sky))
+    lit_cfg = T.RenderConfig(width=512, height=512, spp=16, max_depth=8,
+                             env_scale=0.8)
+    key = T.prng_key(4000000007, dev)
+    rows = {}
+    for name, scene, cfg in (("tetra", tetra, tetra_cfg),
+                             ("lit large scene", lit, lit_cfg)):
+        px = cfg.rays_per_dispatch // cfg.spp        # one full chunk
+        first = (cfg.height // 2) * cfg.width - px // 2
+        pix = torch.arange(first, first + px, device=dev)
+        with torch.inference_mode():
+            state = prepare_state(scene.to(dev), cfg)
+            n_lights = state.data.n_lights
+            if state.packet is None:
+                raise AssertionError(f"{name}: not on kernel C")
+            got, calls = shaded_chunk(state, cfg, pix, key)
+            with torch_shading():
+                want = render_pixel_ids(state, cfg, pix, key)
+            bound = bind_graphs(BounceGraphs(dev), state, cfg)
+            for _ in range(3):           # warm-up, capture, replays only
+                graphed = render_pixel_ids(bound, cfg, pix, key)
+            torch.cuda.synchronize()
+            if not (same_values(got, want) and same_values(graphed, want)):
+                raise AssertionError(
+                    f"{name}: the chunk's radiance through the kernels "
+                    f"differs from the torch loop's: op by op "
+                    f"{compare_images(got, want)}, as graphs "
+                    f"{compare_images(graphed, want)}")
+            bad = {}
+            for depth, (h_args, sh, c_args, nxt) in enumerate(calls):
+                twin_sh = shade._shade_hits_torch(*h_args)
+                twin_nxt = shade._close_bounce_torch(*c_args)
+                for what, out, twin in (
+                        ("shade_hits", sh, twin_sh),
+                        ("close_bounce", nxt, twin_nxt),
+                        ("shade_hits, graph",
+                         replayed(shade.shade_hits, h_args), twin_sh),
+                        ("close_bounce, graph",
+                         replayed(shade.close_bounce, c_args), twin_nxt)):
+                    diff = differing(out, twin)
+                    if diff:
+                        bad[f"bounce {depth}, {what}"] = diff
+            if bad:
+                raise AssertionError(f"{name}: the shade kernels differ from "
+                                     f"their twins (lanes by output): {bad}")
+            live = [int(c[1].live.sum()) for c in calls]
+            log(f"shade kernels, {name} ({n_lights} lights, {pix.shape[0]} "
+                f"pixels x {cfg.spp} spp = {pix.shape[0] * cfg.spp} lanes "
+                f"from pixel {first}): every output of both kernels on each "
+                f"of the chunk's {len(calls)} bounces (live lanes {live}), "
+                f"launched op by op and replayed from a CUDA graph, equal to "
+                f"the twins' on the same inputs; the chunk's radiance through "
+                f"the kernels, op by op and as BounceGraphs, equal to the "
+                f"torch loop's")
+            # each kernel's time and bound on every bounce; its twin's at 0
+            times = {"shade_hits": [], "close_bounce": []}
+            bounds = {"shade_hits": [], "close_bounce": []}
+            for h_args, sh, c_args, _ in calls:
+                b_hits, b_close, _ = shade_bound(h_args, sh, n_lights)
+                for kernel, args, b_ms in (("shade_hits", h_args, b_hits),
+                                           ("close_bounce", c_args, b_close)):
+                    times[kernel].append(graph_ms(getattr(shade, kernel),
+                                                  args))
+                    bounds[kernel].append(b_ms)
+            h_args, _, c_args, _ = calls[0]
+            for kernel, twin, args in (
+                    ("shade_hits", shade._shade_hits_torch, h_args),
+                    ("close_bounce", shade._close_bounce_torch, c_args)):
+                plain_ms, _ = cuda_ms(lambda: twin(*args), 3)
+                ms, b_ms = times[kernel][0], bounds[kernel][0]
+                mean_ms = sum(times[kernel]) / len(calls)
+                mean_b = sum(bounds[kernel]) / len(calls)
+                log(f"{kernel}, {name}, a {h_args[0].shape[0]}-lane chunk: "
+                    f"bounce 0 {ms:.4f} ms, bound {b_ms:.4f} ms (bytes), "
+                    f"{ms / b_ms:.2f}x; the chunk's {len(calls)} bounces "
+                    f"{[round(t, 4) for t in times[kernel]]} ms, mean "
+                    f"{mean_ms:.4f} against a mean bound {mean_b:.4f} "
+                    f"({mean_ms / mean_b:.2f}x); the twin {plain_ms:.2f} ms "
+                    f"at bounce 0")
+                rows.setdefault(kernel, {})[name] = (ms, plain_ms, b_ms,
+                                                     mean_ms, mean_b)
+            del calls, got, want, graphed, bound, state
+        torch.cuda.empty_cache()
+
+    r = T.Renderer(tetra_cfg, device="cuda")
+    tetra = tetra.to(dev)
+    for k in (5, 6):       # the full chunks' warm-up and capture, the last's
+        r.render(tetra, T.prng_key(k))
+    torch.cuda.synchronize()
+    zero_launches()
+    sampling.lane_draws.launches = 0
+    t0 = time.perf_counter()
+    img = r.render(tetra, T.prng_key(7))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    draws = sampling.lane_draws.launches
+    n_rays = tetra_cfg.n_pixels * tetra_cfg.spp
+    log(f"tetra-frame frame (Renderer.render, graphs replayed): "
+        f"{dt * 1e3:.1f} ms, {n_rays / dt:,.0f} rays/s; launches {launches}, "
+        f"lane_draws {draws}")
+    check_image(img, tetra_cfg, "the tetra frame")
+    check_packet_route(launches, "the tetra frame")
+    check_shaded(launches, "the tetra frame")
+    if not (launches["shade_hits"] == draws
+            and launches["packet"] == 2 * draws):
+        raise AssertionError(f"the tetra frame must launch each shade kernel "
+                             f"once, kernel C twice, a bounce's draw: "
+                             f"{launches}, lane_draws {draws}")
+    out = []
+    for kernel in ("shade_hits", "close_bounce"):
+        (ms, plain_ms, b_ms, mean_ms, mean_b), lit_ = (
+            rows[kernel]["tetra"], rows[kernel]["lit large scene"])
+        out.append({"name": kernel, "route": "cuda",
+                    "source": "tinypathtracer_tpu_torch/csrc/shade.cu",
+                    "replaces": None, "launches": launches[kernel],
+                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": "bytes",
+                    "library_ms": None, "mean_bounce_ms": mean_ms,
+                    "mean_bounce_bound_ms": mean_b, "lit_ms": lit_[0],
+                    "lit_plain_ms": lit_[1], "lit_bound_ms": lit_[2],
+                    "lit_mean_bounce_ms": lit_[3],
+                    "lit_mean_bounce_bound_ms": lit_[4]})
+    return out
+
+
 def entry_phase(T):
     """Phase 33: the entry points of tinypathtracer_tpu_torch.entry on
     the card. entry() called once: its frame equal bit for bit to
@@ -2955,11 +3289,11 @@ def main():
     from tinypathtracer_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    from tinypathtracer_tpu_torch.ops import sampling
+    from tinypathtracer_tpu_torch.ops import sampling, shade
 
     cuda_build.build_libraries(["dense", "mega", "packet", "lab4",
-                                "lab5_diag", "keys"])
-    for mod in (dense, mega, packet, lab4, lab5_diag, sampling):
+                                "lab5_diag", "keys", "shade"])
+    for mod in (dense, mega, packet, lab4, lab5_diag, sampling, shade):
         mod._lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
@@ -3276,6 +3610,8 @@ def main():
     phase_done("phase 33")
     key_rows = keys_phase(T, sky, dev)
     phase_done("phase 34")
+    shade_rows = shade_phase(T, sky, dev)
+    phase_done("phase 35")
     log(f"launches of the main paths of phases 23-27: {textured}")
     for kernel in ("dense", "packet", "mega_save_hits"):
         if not textured.get(kernel):
@@ -3340,7 +3676,7 @@ def main():
             for k, row in nee_bounds["C"].items()
             for f, v in zip(("queries", "ms", "bound_ms", "bound_by"), row)}},
     ]
-    kernels += key_rows
+    kernels += key_rows + shade_rows
     diag_ms, diag_visits = lab["diag"][4:]
     extra = {"mxu": {"design": "wgmma TF32 from TMA-staged planes, "
                                "3xTF32 folded into K = 16",

@@ -56,137 +56,20 @@
 //   base color is read again and the light radiance computed again after
 //   it (the same operations on the same operands: the same bits).
 // The lights table sits in shared memory. The env lookup of lanes that
-// missed runs after the kernel.
+// missed runs after the kernel. The shading arithmetic (BSDF sample,
+// hemisphere sample, delta lights) lives in shade.cuh, which the modular
+// bounce's kernels (shade.cu) share.
 #include <cstdint>
 
 #include "hit.cuh"
+#include "shade.cuh"
 #include "tma.cuh"
 
 namespace {
 
-constexpr int kMaxLights = 6;
 constexpr int kShadeRows = 32;
 constexpr int kRowNrm = 12, kRowBase = 21, kRowEm = 24, kRowEta = 25,
               kRowMetal = 26;
-constexpr float kPi = 3.14159265358979f;
-// 1 / pi rounded to float32 (ops/shading_c.py INV_PI): the JAX package's
-// `x / pi` is `x * (1 / pi)` once XLA has compiled it
-constexpr float kInvPi = 0x1.45f306p-2f;
-
-// jnp.maximum / torch.clamp semantics: a NaN operand gives NaN
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
-}
-__device__ __forceinline__ float clip01(float x) {
-  return nan_min(nan_max(x, 0.f), 1.f);
-}
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return (ax * bx + ay * by) + az * bz;
-}
-__device__ __forceinline__ float inv_sqrt(float x) { return 1.f / sqrtf(x); }
-
-// Cosine-weighted hemisphere sample in the reference's tangent frame.
-__device__ __forceinline__ void hemi_cos(float u1, float u2, float nx,
-                                         float ny, float nz, float& dx,
-                                         float& dy, float& dz, float& pdf) {
-  const float phi = (2.f * kPi) * u1;
-  const float cos_t = sqrtf(u2);
-  const float sin_t = sqrtf(nan_max(1.f - u2, 0.f));
-  const bool z_zero = nz == 0.f;
-  const float safe_nz = z_zero ? 1.f : nz;
-  const float rx = z_zero ? 0.f : 1.f;
-  const float rz = z_zero ? 1.f : -nx / safe_nz;
-  const float inv = inv_sqrt(nan_max(rx * rx + rz * rz, 0.f));
-  const float tx = rx * inv, tz = rz * inv, ty = 0.f;
-  const float bx = ty * nz - tz * ny;
-  const float by = tz * nx - tx * nz;
-  const float bz = tx * ny - ty * nx;
-  const float a = cosf(phi) * sin_t;
-  const float c = sinf(phi) * sin_t;
-  dx = (a * tx + cos_t * nx) + c * bx;
-  dy = (a * ty + cos_t * ny) + c * by;
-  dz = (a * tz + cos_t * nz) + c * bz;
-  pdf = cos_t * kInvPi;
-}
-
-// The reference BSDF sample without the base-color factor: Fresnel-coin
-// dielectric, mirror, or cosine diffuse.
-__device__ __forceinline__ void sample_bsdf(float u1, float u2, float u3,
-                                            float dx, float dy, float dz,
-                                            float nx, float ny, float nz,
-                                            float ior, float metallic,
-                                            float& ndx, float& ndy,
-                                            float& ndz, float& ratio) {
-  // refraction (bsdf.refract_reference)
-  const float cos_i = dot3(dx, dy, dz, nx, ny, nz);
-  const bool exiting = cos_i > 0.f;
-  const float ior_safe = ior > 0.f ? ior : 1.f;
-  const float eta = exiting ? ior_safe : 1.f / ior_safe;
-  const float sx = exiting ? -nx : nx;
-  const float sy = exiting ? -ny : ny;
-  const float sz = exiting ? -nz : nz;
-  const float cos_i_abs = fabsf(cos_i);
-  const float sin2_t = eta * eta * (1.f - cos_i_abs * cos_i_abs);
-  const bool tir = sin2_t >= 1.f;
-  const float cos_tt = sqrtf(nan_max(1.f - (tir ? 0.f : sin2_t), 0.f));
-  const float k = cos_i_abs * eta - cos_tt;
-  const float rfx = tir ? 0.f : eta * dx + k * sx;
-  const float rfy = tir ? 0.f : eta * dy + k * sy;
-  const float rfz = tir ? 0.f : eta * dz + k * sz;
-  // reflection
-  const float kr = 2.f * dot3(dx, dy, dz, nx, ny, nz);
-  const float rlx = dx - kr * nx, rly = dy - kr * ny, rlz = dz - kr * nz;
-  // Schlick Fresnel coin
-  float f0 = (1.f - eta) / (1.f + eta);
-  f0 = f0 * f0;
-  const float m = clip01(1.f - cos_i_abs);
-  const float m2 = m * m;
-  const float fr = tir ? 1.f : f0 + (1.f - f0) * m2 * m2 * m;
-  const bool take_refl = u3 < fr;
-  // diffuse lobe around the incident-side normal
-  const float sign = dot3(dx, dy, dz, nx, ny, nz) > 0.f ? -1.f : 1.f;
-  const float nsx = nx * sign, nsy = ny * sign, nsz = nz * sign;
-  float hx, hy, hz, pdf;
-  hemi_cos(u1, u2, nsx, nsy, nsz, hx, hy, hz, pdf);
-  const float cos_o = dot3(hx, hy, hz, nsx, nsy, nsz);
-  const float atten = fabsf(cos_o) * kInvPi;
-  const float diff_ratio = atten / nan_max(pdf, 1e-12f);
-
-  const bool is_dielec = ior > 0.f;
-  const bool is_mirror = !is_dielec && metallic > 0.f;
-  ndx = is_dielec ? (take_refl ? rlx : rfx) : (is_mirror ? rlx : hx);
-  ndy = is_dielec ? (take_refl ? rly : rfy) : (is_mirror ? rly : hy);
-  ndz = is_dielec ? (take_refl ? rlz : rfz) : (is_mirror ? rlz : hz);
-  ratio = (is_dielec || is_mirror) ? 1.f : diff_ratio;
-}
-
-// One delta light (a row of the [L, 16] table) seen from (px, py, pz):
-// direction toward it and attenuated radiance (ops/lights.py).
-__device__ __forceinline__ void delta_light(const float* L, float px,
-                                            float py, float pz, float wi[3],
-                                            float lrad[3]) {
-  const float tlx = L[5] - px, tly = L[6] - py, tlz = L[7] - pz;
-  const float dist_ps = sqrtf(nan_max(dot3(tlx, tly, tlz, tlx, tly, tlz),
-                                      1e-20f));
-  const bool is_dir = L[0] == 1.f;
-  wi[0] = is_dir ? -L[8] : tlx / dist_ps;
-  wi[1] = is_dir ? -L[9] : tly / dist_ps;
-  wi[2] = is_dir ? -L[10] : tlz / dist_ps;
-  const float dist = is_dir ? 0.f : dist_ps;
-  const float cos_theta = dot3(-wi[0], -wi[1], -wi[2], L[8], L[9], L[10]);
-  const float cone = clip01((cos_theta - L[11]) * L[12]);
-  const float falloff = L[0] == 2.f ? cone * cone : 1.f;
-  const float d2 = dist * dist;
-  const float window = clip01(1.f - (d2 * 0.01f) * (d2 * 0.01f));
-  const float fa = falloff * ((1.f / (d2 + 1.f)) * (window * window));
-  lrad[0] = L[1] * L[4] * fa;
-  lrad[1] = L[2] * L[4] * fa;
-  lrad[2] = L[3] * L[4] * fa;
-}
 
 constexpr int kTile = 128;     // slots of a staged tile
 constexpr unsigned kFull = 0xffffffffu;
@@ -414,7 +297,8 @@ __global__ void __launch_bounds__(lanes(kLights), min_blocks(kLights))
         float nz = (ww * row[kRowNrm + 2] + uw * row[kRowNrm + 5]) +
                    vw * row[kRowNrm + 8];
         const float inv =
-            inv_sqrt(nan_max((nx * nx + ny * ny) + nz * nz, 1e-20f));
+            tpt::inv_sqrt(tpt::nan_max((nx * nx + ny * ny) + nz * nz,
+                                       1e-20f));
         nx = nx * inv;
         ny = ny * inv;
         nz = nz * inv;
@@ -443,19 +327,20 @@ __global__ void __launch_bounds__(lanes(kLights), min_blocks(kLights))
         } else {
           ends = false;
           float ndx, ndy, ndz;
-          sample_bsdf(u0, u1, u2, dx, dy, dz, nx, ny, nz, eta, metallic, ndx,
-                      ndy, ndz, ratio);
+          tpt::sample_bsdf(u0, u1, u2, dx, dy, dz, nx, ny, nz, eta, metallic,
+                           ndx, ndy, ndz, ratio);
           // extra direct-emitter sample on diffuse lanes
           need_b = !((eta >= 1.f) || (metallic > 0.f));
-          const float sgn = dot3(dx, dy, dz, nx, ny, nz) > 0.f ? -1.f : 1.f;
+          const float sgn =
+              tpt::dot3(dx, dy, dz, nx, ny, nz) > 0.f ? -1.f : 1.f;
           float pdf2;
-          hemi_cos(u3, u4, nx * sgn, ny * sgn, nz * sgn, db[0], db[1], db[2],
-                   pdf2);
+          tpt::hemi_cos(u3, u4, nx * sgn, ny * sgn, nz * sgn, db[0], db[1],
+                        db[2], pdf2);
 #pragma unroll
           for (int li = 0; li < kLights; ++li) {
             float lrad[3];
             occluded[li] = false;
-            delta_light(s_lights + 16 * li, hx, hy, hz, wi[li], lrad);
+            tpt::delta_light(s_lights + 16 * li, hx, hy, hz, wi[li], lrad);
           }
           need_a = dep + 1 < depth;
           ox = hx;
@@ -535,7 +420,7 @@ __global__ void __launch_bounds__(lanes(kLights), min_blocks(kLights))
 #pragma unroll
       for (int li = 0; li < kLights; ++li) {
         float unused[3], lrad[3];
-        delta_light(s_lights + 16 * li, ox, oy, oz, unused, lrad);
+        tpt::delta_light(s_lights + 16 * li, ox, oy, oz, unused, lrad);
         dr = dr + (occluded[li] ? 0.f : br * lrad[0]);
         dg = dg + (occluded[li] ? 0.f : bg * lrad[1]);
         dbl = dbl + (occluded[li] ? 0.f : bb * lrad[2]);
@@ -625,7 +510,7 @@ constexpr Instance instance() {
 }
 
 // [save_hits][n_lights]
-constexpr Instance kInstances[2][kMaxLights + 1] = {
+constexpr Instance kInstances[2][tpt::kMaxLights + 1] = {
     {instance<0, false>(), instance<1, false>(), instance<2, false>(),
      instance<3, false>(), instance<4, false>(), instance<5, false>(),
      instance<6, false>()},
@@ -642,7 +527,7 @@ extern "C" int tpt_mega_threads(int n_lights) { return lanes(n_lights); }
 // The grid tpt_mega_trace launches for n paths (blocks <= 0 there).
 extern "C" int tpt_mega_grid(int n, int n_lights, int save_hits,
                              int* blocks) {
-  if (n_lights < 0 || n_lights > kMaxLights || n <= 0)
+  if (n_lights < 0 || n_lights > tpt::kMaxLights || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       kInstances[save_hits != 0][n_lights].grid(n, blocks));
@@ -662,7 +547,7 @@ extern "C" int tpt_mega_trace(const float* rays8, const float* u8d,
                               const float* lights, int n, int fp, int depth,
                               int n_lights, int blocks, float* out,
                               float* hits, int* rounds, void* stream) {
-  if (n_lights < 0 || n_lights > kMaxLights || n <= 0 || fp <= 0 ||
+  if (n_lights < 0 || n_lights > tpt::kMaxLights || n <= 0 || fp <= 0 ||
       blocks > n)
     return static_cast<int>(cudaErrorInvalidValue);
   const Instance& inst = kInstances[hits != nullptr][n_lights];
@@ -678,7 +563,7 @@ extern "C" int tpt_mega_trace(const float* rays8, const float* u8d,
 // Registers per thread and local (spill) bytes per thread of one instance.
 extern "C" int tpt_mega_resources(int n_lights, int save_hits, int* regs,
                                   int* local_bytes) {
-  if (n_lights < 0 || n_lights > kMaxLights) return cudaErrorInvalidValue;
+  if (n_lights < 0 || n_lights > tpt::kMaxLights) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err =
       kInstances[save_hits != 0][n_lights].attributes(&attr);

@@ -4,7 +4,9 @@
 A light is one row of the [L, 16] lights table (`lights_block`; the JAX
 package builds it as ops/mega.py `_lights_block`): kind, color rgb,
 intensity, position xyz, direction xyz, cos_outer, inv_cone. The
-megakernel reads the same rows and the same expressions (`csrc/mega.cu`).
+kernels read the same rows and the same expressions (`csrc/shade.cuh`,
+shared by kernel B and the modular bounce's kernels), at most
+`MAX_LIGHTS` of them.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from tinypathtracer_tpu_torch.ops.shading_c import dot_c
 from tinypathtracer_tpu_torch.utils.math3d import sqrt
 
 POINT, DIRECTIONAL, SPOT = 0, 1, 2
+MAX_LIGHTS = 6   # csrc/shade.cuh kMaxLights
 
 
 def lights_block(data):

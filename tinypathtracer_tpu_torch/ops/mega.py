@@ -55,7 +55,7 @@ import torch
 
 from tinypathtracer_tpu_torch.ops.dense import (WoopTris, hit_terms,
                                                 origin_terms, scan_queries)
-from tinypathtracer_tpu_torch.ops.lights import lights_block
+from tinypathtracer_tpu_torch.ops.lights import MAX_LIGHTS, lights_block
 from tinypathtracer_tpu_torch.ops.sampling import lane_draws
 from tinypathtracer_tpu_torch.render.integrator import (Paths, TraceData,
                                                         end_bounce, env_miss,
@@ -66,7 +66,6 @@ from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
 from tinypathtracer_tpu_torch.utils.metrics import span
 
 MEGA_MAX_FACES = 8192
-MAX_LIGHTS = 6
 # shadeT row map (rows of the [32, Fp] fused table): rows 12-26 are the
 # first 15 shade_packT rows (corner normals, base color, emission, eta,
 # metallic); a textured scene's texcoord rows 15-20 stay out

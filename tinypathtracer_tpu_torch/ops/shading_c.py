@@ -4,13 +4,14 @@
 Every per-lane quantity is a plain [N] tensor (vectors as three
 components), each function an order-preserving transcription of the JAX
 one: same operations, same association, no fused multiply-adds. The
-megakernel (`csrc/mega.cu`) transcribes the same expressions, so its
-plain twin (ops/mega.py) shares these functions. Two operations that
+kernels' shading (`csrc/shade.cuh`: kernel B's and the modular
+bounce's) transcribes the same expressions, so their plain twins
+(ops/mega.py, ops/shade.py) share these functions. Two operations that
 torch rounds differently on the CPU and on CUDA are pinned down: square
 roots are correctly rounded (`math3d.sqrt`, as CUDA's `sqrtf`), and a
 division by a constant is the product with its float32 reciprocal, as
-XLA compiles the JAX package's (`INV_PI`, `INV_2PI`). sin and cos are
-still the device library's.
+XLA compiles the JAX package's (`INV_PI`, `INV_2PI`). sin, cos, atan2
+and acos are still the device library's.
 """
 
 from __future__ import annotations

@@ -6,6 +6,9 @@ bounce and direction (ops/dense.py, kernel A on CUDA), carrying the
 path state (`Paths`) in component form. Two estimators, by cfg.mode.
 On the card, with no gradient recorded, a frame's bounces can run as
 CUDA graphs (`BounceGraphs`): the same kernels, one replay a bounce.
+There, in reference mode, two hand-written kernels shade a bounce
+between its queries (`shaded_bounce`, ops/shade.py), the torch code
+below being their plain twin (`fused_shading` says where).
 
 "reference" keeps the CUDA reference estimator's quirks on purpose. A
 bounce is shaded by `scatter` and closed by `end_bounce`; the
@@ -69,11 +72,12 @@ from tinypathtracer_tpu_torch.models.texture import (build_atlas_mips,
                                                      wrap_bilinear, wrap_point)
 from tinypathtracer_tpu_torch.ops import shading_c
 from tinypathtracer_tpu_torch.ops.dense import dense_hit
-from tinypathtracer_tpu_torch.ops.lights import (lights_block,
+from tinypathtracer_tpu_torch.ops.lights import (MAX_LIGHTS, lights_block,
                                                  sample_delta_light)
 from tinypathtracer_tpu_torch.ops.packet import packet_hit
 from tinypathtracer_tpu_torch.ops.sampling import (lane_draws,
                                                    triangle_uniform_u)
+from tinypathtracer_tpu_torch.ops.shade import close_bounce, shade_hits
 from tinypathtracer_tpu_torch.ops.shading_c import INV_PI, dot_c
 from tinypathtracer_tpu_torch.ops.traverse import _ray_tri_single
 from tinypathtracer_tpu_torch.utils.math3d import (f32_reciprocal, fma, sqrt,
@@ -611,6 +615,29 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                          stored_hits, uniforms, remat, graphs)
 
 
+def serves_on_card(data: TraceData, cfg: RenderConfig, device,
+                   recording: bool) -> bool:
+    """Whether a trace takes the card's serving route: lanes on the card
+    (device), autograd not recording, reference mode, an untextured
+    scene. There the renderer runs the modular loop's bounces as CUDA
+    graphs (`renderer.bind_graphs`, on kernels A and C) and
+    `fused_shading` shades them in csrc/shade.cu's kernels."""
+    return (torch.device(device).type == "cuda" and not recording
+            and cfg.mode == "reference" and not data.textured)
+
+
+def fused_shading(data: TraceData, cfg: RenderConfig, device,
+                  recording: bool, replay: bool) -> bool:
+    """Whether a trace's bounces are shaded by csrc/shade.cu's kernels
+    (`shaded_bounce`): on the card's serving route (`serves_on_card`),
+    with at most MAX_LIGHTS delta lights and hits queried by the loop
+    (replay: stored hits or precomputed uniforms are not). Elsewhere the
+    torch code runs: the CPU, autograd and its recompute, the
+    megakernel's backward, physical mode, textures, more lights."""
+    return (serves_on_card(data, cfg, device, recording) and not replay
+            and data.n_lights <= MAX_LIGHTS)
+
+
 def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                   origins, dirs, lane_keys, stored_hits, uniforms,
                   remat: bool, graphs=None):
@@ -628,14 +655,23 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
         return fid, t.detach(), uv.detach()
 
     lights = lights_block(data) if graphs is None else graphs.lights
+    if fused_shading(data, cfg, origins.device, remat,
+                     stored_hits is not None or uniforms is not None):
+        # the radiance copied out: a graph's replay overwrites its outputs
+        return _trace_loop(
+            _start_rows, functools.partial(shaded_bounce, data, cfg,
+                                           hit_query, lights),
+            lambda c: c[3].clone(), origins, dirs, lane_keys, cfg.max_depth,
+            graphs)
 
     def bounce(depth: int, keys, *carry):
-        # carry: o, d, thr, rad (three [N] tensors each), alive, and the
-        # physical estimator's prev_spec (the last bounce was a camera ray
-        # or specular) and prev_pdf (its solid-angle pdf, 0 there)
+        # carry: o, d, thr, rad (three [N] tensors each), the physical
+        # estimator's prev_spec (the last bounce was a camera ray or
+        # specular) and prev_pdf (its solid-angle pdf, 0 there), and alive
+        # last (the loop reads it)
         st = Paths(o=carry[0:3], d=carry[3:6], thr=carry[6:9],
-                   rad=carry[9:12], alive=carry[12])
-        prev_spec, prev_pdf = carry[13], carry[14]
+                   rad=carry[9:12], alive=carry[14])
+        prev_spec, prev_pdf = carry[12], carry[13]
         if uniforms is None:
             u = lane_draws(keys, depth, 1, 9 if physical else 6)
         else:
@@ -681,13 +717,22 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                 unocc = [((occ >> li) & 1) == 0
                          for li in range(data.n_lights)]
             st = end_bounce(st, sc, fid2, data.face_emission, unocc)
-        return (*st.o, *st.d, *st.thr, *st.rad, st.alive, prev_spec,
-                prev_pdf)
+        return (*st.o, *st.d, *st.thr, *st.rad, prev_spec, prev_pdf,
+                st.alive)
 
+    return _trace_loop(_start, bounce, lambda c: torch.stack(c[9:12], dim=1),
+                       origins, dirs, lane_keys, cfg.max_depth, graphs, remat)
+
+
+def _trace_loop(start, bounce, radiance, origins, dirs, lane_keys,
+                max_depth: int, graphs, remat: bool = False):
+    """radiance(the last carry) of trace_bounces' loop over a chunk:
+    carry = start(origins, dirs), then carry = bounce(depth, lane_keys,
+    *carry) a bounce, each rematerialised where remat, as graphs'
+    replays where graphs is given. A carry holds alive last."""
     if graphs is not None:
-        carry = graphs.trace(_start, bounce, (origins, dirs, lane_keys),
-                             cfg.max_depth)
-        return torch.stack(carry[9:12], dim=1)
+        return radiance(graphs.trace(start, bounce,
+                                     (origins, dirs, lane_keys), max_depth))
 
     def step(depth, carry):
         if remat:
@@ -697,35 +742,60 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                               preserve_rng_state=False)
         return bounce(depth, lane_keys, *carry)
 
-    carry = _start(origins, dirs)
-    carry = _bounce_loop(step, carry, bool(carry[12].any()), cfg.max_depth)
-    return torch.stack(carry[9:12], dim=1)
+    carry = start(origins, dirs)
+    return radiance(_bounce_loop(step, carry, bool(carry[-1].any()),
+                                 max_depth))
+
+
+def shaded_bounce(data: TraceData, cfg: RenderConfig, hit_query, lights,
+                  depth: int, keys, o, d, thr, rad, alive):
+    """One reference-mode bounce of trace_bounces' loop with its shading
+    in two kernels (ops/shade.py: `shade_hits` after the main query,
+    `close_bounce` after the extra emitter and shadow queries): the same
+    draws, queries and next carry, bit for bit, as the torch code. The
+    carry (`_start_rows`) is o, d, thr, rad as [N, 3] rows, which the
+    queries read as they are, and alive."""
+    u = lane_draws(keys, depth, 1, 6)
+    fid, t, uv = hit_query(o, d, alive)
+    sh = shade_hits(o, d, thr, rad, alive, fid, t, uv, u, data, cfg, lights)
+    fid2 = hit_query(sh.h, sh.d2, sh.extra)[0]
+    occ = [hit_query(sh.h, wi, sh.live)[0] for wi in sh.wi]
+    return close_bounce(o, d, thr, sh, fid, fid2, occ, data, lights)
 
 
 def _start(origins, dirs):
-    """The carry of trace_bounces' loop before the first bounce."""
+    """The carry of trace_bounces' torch loop before the first bounce."""
     st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
-    return (*st.o, *st.d, *st.thr, *st.rad, st.alive, st.alive,
-            torch.zeros_like(st.thr[0]))
+    return (*st.o, *st.d, *st.thr, *st.rad, st.alive,
+            torch.zeros_like(st.thr[0]), st.alive)
+
+
+def _start_rows(origins, dirs):
+    """The carry of `shaded_bounce` before the first bounce: `_start`'s
+    paths as [N, 3] rows."""
+    n = origins.shape[0]
+    return (origins.contiguous(), dirs.contiguous(), origins.new_ones((n, 3)),
+            origins.new_zeros((n, 3)),
+            torch.ones((n,), dtype=torch.bool, device=origins.device))
 
 
 def _bounce_loop(step, carry, alive: bool, max_depth: int):
     """carry = step(depth, carry) for depth 0, 1, ... while any lane is
-    alive (alive: whether one is before the first). One host sync a
-    bounce, whether any lane is alive; a bounce's span holds the sync
-    that closes it (none after the last bounce)."""
+    alive (alive: whether one is before the first; the carry holds it
+    last). One host sync a bounce, whether any lane is alive; a bounce's
+    span holds the sync that closes it (none after the last bounce)."""
     for depth in range(max_depth):
         if not alive:
             break
         with span("tpt.bounce"):
             carry = step(depth, carry)
-            alive = depth + 1 < max_depth and bool(carry[12].any())
+            alive = depth + 1 < max_depth and bool(carry[-1].any())
     return carry
 
 
 # the kernels a bounce may launch that count their launches
 # (`<function>.launches`); a graph's replay adds what its capture counted
-_COUNTED = (lane_draws, packet_hit, dense_hit)
+_COUNTED = (lane_draws, packet_hit, dense_hit, shade_hits, close_bounce)
 
 
 class BounceGraphs:
@@ -785,7 +855,7 @@ class BounceGraphs:
                 return bounce(depth, lanes[2], *carry)
 
             carry = start(*lanes[:2])
-            return _bounce_loop(warm_up, carry, bool(carry[12].any()),
+            return _bounce_loop(warm_up, carry, bool(carry[-1].any()),
                                 max_depth)
         bufs = self.lanes.get(n)
         if bufs is None:

@@ -59,6 +59,7 @@ from tinypathtracer_tpu_torch.ops.traverse import closest_hit_bvh
 from tinypathtracer_tpu_torch.render import film, raygen
 from tinypathtracer_tpu_torch.render.integrator import (BounceGraphs,
                                                         TraceData,
+                                                        serves_on_card,
                                                         trace_paths)
 from tinypathtracer_tpu_torch.utils import native
 from tinypathtracer_tpu_torch.utils.metrics import span
@@ -180,13 +181,12 @@ def bind_graphs(graphs: BounceGraphs, state: PipelineState,
                 cfg: RenderConfig) -> PipelineState:
     """The state bound to graphs, its trace data and closest-hit tables
     in their buffers (`BounceGraphs.bind`), where the modular loop's
-    bounces run as CUDA graphs: on the card, with no gradient recorded,
-    in reference mode, on an untextured scene, on kernel C or kernel A
-    (not the megakernel). The state as it was elsewhere."""
-    if not (state.scene.device.type == "cuda"
-            and not torch.is_grad_enabled() and cfg.mode == "reference"
-            and not state.data.textured and state.woop is not None
-            and not uses_megakernel(state, cfg)):
+    bounces run as CUDA graphs: on the card's serving route
+    (`integrator.serves_on_card`, grad disabled), on kernel C or kernel
+    A (not the megakernel). The state as it was elsewhere."""
+    if not (serves_on_card(state.data, cfg, state.scene.device,
+                           torch.is_grad_enabled())
+            and state.woop is not None and not uses_megakernel(state, cfg)):
         return state
     if state.packet is not None:
         data, packet = graphs.bind(state.data, state.packet)
