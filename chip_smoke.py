@@ -560,13 +560,6 @@ def cuda_ms(fn, reps, warm=True):
     return times[len(times) // 2], out
 
 
-def bound(ops, nbytes):
-    """tools/common.bound: (least time in ms, "operations" or "bytes")."""
-    from tinypathtracer_tpu_torch.tools import common
-
-    return common.bound(ops, nbytes)
-
-
 def packet_work(rays, visits, pk):
     """(operations, bytes) of the packet traversal's function on rays
     [N, 8] whose visit counts are `visits`: per visited chunk tc pair
@@ -782,6 +775,7 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
     from tinypathtracer_tpu_torch.ops import dense, packet
     from tinypathtracer_tpu_torch.render.renderer import (lane_rays,
                                                           prepare_state)
+    from tinypathtracer_tpu_torch.tools.common import bound
     from tinypathtracer_tpu_torch.tools.lab_dense import first_bounce
 
     scene = host_scene.to(dev)
@@ -897,7 +891,7 @@ def check_packet_route(launches, what):
 def check_shaded(launches, what, shaded=True):
     """Where shaded, csrc/shade.cu's two kernels launched, once each a
     bounce run op by op or replayed (the modular loop's reference
-    bounces on the card, `integrator.fused_shading`); else neither."""
+    bounces on the card: the route's shade_kernels); else neither."""
     n = launches["shade_hits"]
     if (n != launches["close_bounce"]) or (n > 0) != shaded:
         raise AssertionError(f"{what} must launch the shade kernels "
@@ -990,7 +984,8 @@ def large_scene_paths(T, cfg, host_scene, key, dev):
 
     with torch.inference_mode():
         st = prepare_state(scene, cfg)
-        st = dataclasses.replace(st, packet=None)     # kernel A's sweep
+        st = dataclasses.replace(st, route=dataclasses.replace(
+            st.route, intersector="dense"))          # kernel A's sweep
         pix = torch.arange(cfg.n_pixels, device=dev)
         zero_launches()
         t0 = time.perf_counter()
@@ -1241,6 +1236,7 @@ def frame_packet_bound(render, pk):
     wrapped for that frame only). render() runs op by op: a CUDA graph's
     replay calls no packet_hit."""
     from tinypathtracer_tpu_torch.ops import packet
+    from tinypathtracer_tpu_torch.tools.common import bound
 
     real, bounds = packet.packet_hit, []
 
@@ -1324,7 +1320,7 @@ def lab4_work(n, faces, precision):
     pairs = n * faces               # lab4's rays: each from its own origin
     nbytes = n * (32 + 8) + faces * 48
     if precision is None:
-        return bound(common.pair_ops(pairs, pairs), nbytes)
+        return common.bound(common.pair_ops(pairs, pairs), nbytes)
     passes = 3 if precision == "highest" else 1
     t_mma = pairs * OPS_TRANSFORM * passes / common.TF32_PEAK * 1e3
     t_fp32 = (common.pair_ops(pairs, pairs) - pairs * OPS_TRANSFORM) \
@@ -1489,8 +1485,8 @@ def diag_phase(T, dev):
     nbytes = n * (32 + 4) + c * diag.ROWS * diag.CHUNK * 4 + cp * 32
     log(f"kernel F walk: {float(visits.float().mean()):.3f} chunk visits per "
         f"packet (max {int(visits.max())}); work {ops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB; bound {bound(ops, nbytes)}")
-    return (res["walk"][0], res["walk"][1], err, bound(ops, nbytes),
+        f"{nbytes / 1e6:.1f} MB; bound {common.bound(ops, nbytes)}")
+    return (res["walk"][0], res["walk"][1], err, common.bound(ops, nbytes),
             {v: ms for v, (ms, _) in res.items()},
             float(visits.float().mean()))
 
@@ -1737,7 +1733,8 @@ def capture_queries(T, scene, cfg, key, n_lanes):
             queries.append((orig, dirs, mask))
             return fn(orig, dirs, mask=mask)
 
-        trace_paths(st.data, cfg, recording, o, d, keys)
+        trace_paths(st.data, cfg, recording, o, d, keys,
+                    shade_kernels=st.route.shade_kernels)
     return st, queries
 
 
@@ -1755,6 +1752,7 @@ def query_bounds(st, queries, per):
     each timed apart from the main path's launch counts."""
     from tinypathtracer_tpu_torch.ops import dense, packet
     from tinypathtracer_tpu_torch.tools import lab_dense
+    from tinypathtracer_tpu_torch.tools.common import bound
 
     rows = {}
     for q, (o, d, mask) in enumerate(queries):
@@ -1855,8 +1853,9 @@ def physical_large_on_a(T, scene, sky, key, pcfg, packet_frame, dev):
                                                           render_pixel_ids)
 
     with torch.inference_mode():
-        st = dataclasses.replace(
-            prepare_state(scene.flatten(sky, device=dev), pcfg), packet=None)
+        st = prepare_state(scene.flatten(sky, device=dev), pcfg)
+        st = dataclasses.replace(st, route=dataclasses.replace(
+            st.route, intersector="dense"))
         pix = torch.arange(pcfg.n_pixels, device=dev)
         zero_launches()
         t0 = time.perf_counter()
@@ -1904,7 +1903,8 @@ def oracle_disagreements(scene, cfg, key, dev):
                                      >= SELF_HIT_T)).sum())
             return a
 
-        trace_paths(st.data, cfg, both, o, d, keys)
+        trace_paths(st.data, cfg, both, o, d, keys,
+                    shade_kernels=st.route.shade_kernels)
     return tuple(counts)
 
 
@@ -2307,30 +2307,10 @@ def progressive_phase(T, room_t, cfg, key, room_frame, tmp):
     return steps, sum(steps), peak, total
 
 
-class torch_shading:
-    """Context: the modular loop's bounces shaded by the torch code on
-    the card, the rule that picks csrc/shade.cu's kernels
-    (integrator.fused_shading) forced off."""
-
-    def __enter__(self):
-        from tinypathtracer_tpu_torch.render import integrator
-
-        self.real = integrator.fused_shading
-        integrator.fused_shading = lambda *args: False
-        return self
-
-    def __exit__(self, *exc):
-        from tinypathtracer_tpu_torch.render import integrator
-
-        integrator.fused_shading = self.real
-        return False
-
-
-class twin_kernels(torch_shading):
+class twin_kernels:
     """Context: kernels A and C replaced, in ops/dense and ops/packet, by
-    their plain twins on the same (card) tensors, and the bounces shaded
-    by the torch code (`torch_shading`): the twin route of a comparison.
-    The twins count no launch."""
+    their plain twins on the same (card) tensors: the twin route of a
+    comparison. The twins count no launch."""
 
     def __enter__(self):
         from tinypathtracer_tpu_torch.ops import dense, packet
@@ -2340,13 +2320,13 @@ class twin_kernels(torch_shading):
             rays, woop.planes, woop.sp_boxes if dense.gated(woop) else None,
             mask)
         packet.packet_hit = packet._packet_torch
-        return super().__enter__()
+        return self
 
     def __exit__(self, *exc):
         from tinypathtracer_tpu_torch.ops import dense, packet
 
         dense.dense_hit, packet.packet_hit = self.kernels
-        return super().__exit__(*exc)
+        return False
 
 
 def aov_phase(T, scenes, cfg, key, dev):
@@ -3019,32 +2999,35 @@ def graph_ms(fn, args, launches=10, reps=5):
 
 def shaded_chunk(state, cfg, pix, key):
     """(radiance sums [P, 3], the calls of each bounce) of pixel ids pix
-    through the kernels' route op by op; a bounce's calls are [shade_hits'
-    arguments, its Shaded, close_bounce's arguments, its next carry]."""
-    from tinypathtracer_tpu_torch.ops import shade
+    through the kernels op by op: the loop of `integrator.shaded_bounce`
+    driven here, a bounce's calls [shade_hits' arguments, its Shaded,
+    close_bounce's arguments, its next carry]. The caller holds the sums
+    to the route's."""
+    from tinypathtracer_tpu_torch.ops import sampling, shade
+    from tinypathtracer_tpu_torch.ops.lights import lights_block
     from tinypathtracer_tpu_torch.render import integrator
-    from tinypathtracer_tpu_torch.render.renderer import render_pixel_ids
+    from tinypathtracer_tpu_torch.render.renderer import hit_fn, lane_rays
 
+    o, d, keys = lane_rays(state.scene, cfg, pix, key)
+    hit, data = hit_fn(state, cfg), state.data
+    lights = lights_block(data)
+    carry = integrator._start_rows(o, d)
     calls = []
-
-    def hits(*args):
-        out = shade.shade_hits(*args)
-        calls.append([args, out])
-        return out
-
-    def close(*args):
-        out = shade.close_bounce(*args)
-        calls[-1] += [args, out]
-        return out
-
-    integrator.shade_hits, integrator.close_bounce = hits, close
-    try:
-        rad = render_pixel_ids(state, cfg, pix, key)
-    finally:
-        integrator.shade_hits = shade.shade_hits
-        integrator.close_bounce = shade.close_bounce
+    for depth in range(cfg.max_depth):
+        if not bool(carry[-1].any()):
+            break
+        o, d, thr, rad, alive = carry
+        fid, t, uv = hit(o, d, mask=alive)
+        h_args = (o, d, thr, rad, alive, fid, t, uv,
+                  sampling.lane_draws(keys, depth, 1, 6), data, cfg, lights)
+        sh = shade.shade_hits(*h_args)
+        fid2 = hit(sh.h, sh.d2, mask=sh.extra)[0]
+        occ = [hit(sh.h, wi, mask=sh.live)[0] for wi in sh.wi]
+        c_args = (o, d, thr, sh, fid, fid2, occ, data, lights)
+        carry = shade.close_bounce(*c_args)
+        calls.append([h_args, sh, c_args, carry])
     torch.cuda.synchronize()
-    return rad, calls
+    return carry[3].reshape(pix.shape[0], cfg.spp, 3).sum(dim=1), calls
 
 
 def shade_bound(args, sh, n_lights):
@@ -3072,8 +3055,7 @@ def shade_phase(T, sky, dev):
     from portbench import scenes as bench_scenes
     from tinypathtracer_tpu_torch.ops import sampling, shade
     from tinypathtracer_tpu_torch.render.integrator import BounceGraphs
-    from tinypathtracer_tpu_torch.render.renderer import (bind_graphs,
-                                                          prepare_state,
+    from tinypathtracer_tpu_torch.render.renderer import (prepare_state,
                                                           render_pixel_ids)
     from tinypathtracer_tpu_torch.tools.lab_mega import with_lights
 
@@ -3094,20 +3076,28 @@ def shade_phase(T, sky, dev):
         with torch.inference_mode():
             state = prepare_state(scene.to(dev), cfg)
             n_lights = state.data.n_lights
-            if state.packet is None:
-                raise AssertionError(f"{name}: not on kernel C")
+            if not (state.route.intersector == "packet"
+                    and state.route.shade_kernels):
+                raise AssertionError(f"{name}: not on kernel C with the "
+                                     f"shade kernels: {state.route}")
             got, calls = shaded_chunk(state, cfg, pix, key)
-            with torch_shading():
-                want = render_pixel_ids(state, cfg, pix, key)
-            bound = bind_graphs(BounceGraphs(dev), state, cfg)
+            routed = render_pixel_ids(state, cfg, pix, key)
+            want = render_pixel_ids(dataclasses.replace(
+                state, route=dataclasses.replace(state.route,
+                                                 shade_kernels=False)),
+                cfg, pix, key)
+            bound = prepare_state(scene.to(dev), cfg,
+                                  graphs=BounceGraphs(dev))
             for _ in range(3):           # warm-up, capture, replays only
                 graphed = render_pixel_ids(bound, cfg, pix, key)
             torch.cuda.synchronize()
-            if not (same_values(got, want) and same_values(graphed, want)):
+            if not (same_values(got, want) and same_values(routed, want)
+                    and same_values(graphed, want)):
                 raise AssertionError(
                     f"{name}: the chunk's radiance through the kernels "
-                    f"differs from the torch loop's: op by op "
-                    f"{compare_images(got, want)}, as graphs "
+                    f"differs from the torch loop's: the bounces driven "
+                    f"here {compare_images(got, want)}, the route op by op "
+                    f"{compare_images(routed, want)}, as graphs "
                     f"{compare_images(graphed, want)}")
             bad = {}
             for depth, (h_args, sh, c_args, nxt) in enumerate(calls):
@@ -3162,7 +3152,7 @@ def shade_phase(T, sky, dev):
                     f"at bounce 0")
                 rows.setdefault(kernel, {})[name] = (ms, plain_ms, b_ms,
                                                      mean_ms, mean_b)
-            del calls, got, want, graphed, bound, state
+            del calls, got, routed, want, graphed, bound, state
         torch.cuda.empty_cache()
 
     r = T.Renderer(tetra_cfg, device="cuda")
@@ -3460,8 +3450,9 @@ def main():
     ops_h, bytes_h = lab_mega.mega_work(ops[0], h_hits, ops[3], 8, 0,
                                         save_hits=True)
     ops_a, bytes_a = lab_dense.dense_pairs(rays, woop)
-    bounds = {"dense": bound(ops_a, bytes_a), "mega": bound(ops_b, bytes_b),
-              "mega_save_hits": bound(ops_h, bytes_h)}
+    bounds = {"dense": common.bound(ops_a, bytes_a),
+              "mega": common.bound(ops_b, bytes_b),
+              "mega_save_hits": common.bound(ops_h, bytes_h)}
     log(f"work per 2**20-lane chunk: kernel A {ops_a / 1e9:.2f} GFLOP, "
         f"{bytes_a / 1e6:.1f} MB; kernel B {ops_b / 1e9:.2f} GFLOP, "
         f"{bytes_b / 1e6:.1f} MB (save_hits {bytes_h / 1e6:.1f} MB); "
@@ -3495,8 +3486,8 @@ def main():
     err_c = max(err_c, err)
     c_ms, (ops_c, bytes_c) = c_res["camera"]
     fb_ms, fb_work = c_res["first-bounce"]
-    bounds["packet"] = bound(ops_c, bytes_c)
-    bounds["packet_first_bounce"] = bound(*fb_work)
+    bounds["packet"] = common.bound(ops_c, bytes_c)
+    bounds["packet_first_bounce"] = common.bound(*fb_work)
     log(f"work of the packet traversal on the camera chunk: "
         f"{ops_c / 1e9:.2f} GFLOP, {bytes_c / 1e6:.1f} MB; bound "
         f"{bounds['packet']}; kernel C {c_ms:.2f} ms camera, {fb_ms:.2f} ms "

@@ -386,7 +386,8 @@ def test_large_frame_matches_jax_and_dense():
     pix = torch.arange(cfg.n_pixels)
     with torch.no_grad():
         a = renderer.render_pixel_ids(state, cfg, pix, prng_key(3))
-        b = renderer.render_pixel_ids(dataclasses.replace(state, packet=None),
+        on_a = dataclasses.replace(state.route, intersector="dense")
+        b = renderer.render_pixel_ids(dataclasses.replace(state, route=on_a),
                                       cfg, pix, prng_key(3))
     assert torch.equal(a, b)
 

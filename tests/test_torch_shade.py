@@ -2,12 +2,13 @@
 kernels (ops/shade.py, `integrator.shaded_bounce`) against the torch
 code, their plain twin.
 
-On the CPU: the rule that picks the kernels (`integrator.fused_shading`)
-and the torch code everywhere it declines, and the kernels' route, run
-on the twins, equal to the torch loop bit for bit. On the card (`-k
-card`): the kernels' images equal the torch loop's bit for bit, op by
-op and as CUDA graphs, with the same counted launches. No JAX here: the
-card runs this file.
+On the CPU: the route of every caller (`renderer.decide_route`), the
+torch code everywhere the route declines the kernels, the kernels'
+route, run on the twins, equal to the torch loop bit for bit, and the
+kernels refusing what they cannot shade. On the card (`-k card`): the
+kernels' images equal the torch loop's bit for bit, op by op and as
+CUDA graphs, with the same counted launches. No JAX here: the card runs
+this file.
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ from tinypathtracer_tpu_torch.models.envlight import gradient_sky
 from tinypathtracer_tpu_torch.ops import dense, packet, sampling, shade
 from tinypathtracer_tpu_torch.render import integrator
 from tinypathtracer_tpu_torch.render import renderer as rend
+from tinypathtracer_tpu_torch.render.renderer import Route
 from tinypathtracer_tpu_torch.tools.lab_mega import with_lights
 
 torch.set_num_threads(2)
@@ -51,13 +53,15 @@ def _counts():
     return [fn.launches for fn in SHADE + QUERIES]
 
 
-def _render(state, cfg, key, fused=None, monkeypatch=None):
-    """(pixel sums, counted launches of SHADE + QUERIES) of one frame;
-    fused=False forces the torch code."""
-    if fused is not None:
-        real = integrator.fused_shading
-        monkeypatch.setattr(integrator, "fused_shading",
-                            lambda *a: fused and real(*a))
+def _with(state, **route):
+    """The state with its route's fields replaced."""
+    return dataclasses.replace(
+        state, route=dataclasses.replace(state.route, **route))
+
+
+def _render(state, cfg, key):
+    """(pixel sums, counted launches of SHADE + QUERIES) of one frame on
+    the state's route."""
     before = _counts()
     with torch.inference_mode():
         img = rend.render_pixel_ids(
@@ -65,8 +69,6 @@ def _render(state, cfg, key, fused=None, monkeypatch=None):
             key)
     if img.device.type == "cuda":
         torch.cuda.synchronize()
-    if fused is not None:
-        monkeypatch.setattr(integrator, "fused_shading", real)
     return img.cpu(), [a - b for a, b in zip(_counts(), before)]
 
 
@@ -83,45 +85,52 @@ DECLINED = {
 }
 
 
+def _recording(scene, grad):
+    """The scene with its base colours a leaf that needs a gradient."""
+    if not grad:
+        return scene
+    return dataclasses.replace(
+        scene, mtl_base_color=scene.mtl_base_color.clone().requires_grad_())
+
+
 @pytest.mark.parametrize("case", list(DECLINED))
-def test_the_torch_code_runs_where_the_kernels_do_not(case, monkeypatch):
-    """Where the rule declines, the kernels never launch and the image is
-    the torch loop's. The rule is asked, as the loop asks it, also with
-    the lanes on a card: only "cpu_lanes" would engage there."""
+def test_the_torch_code_runs_where_the_kernels_do_not(case):
+    """Where the route declines the kernels, they never launch and the
+    image is the torch loop's. The route is also decided with the lanes
+    on a card: only "cpu_lanes" would take the kernels there."""
     scene, cfg, grad = DECLINED[case]
-    asked = []
-    real = integrator.fused_shading
-
-    def spy(data, cfg_, device, recording, replay):
-        asked.append(real(data, cfg_, "cuda", recording, replay))
-        return real(data, cfg_, device, recording, replay)
-
-    monkeypatch.setattr(integrator, "fused_shading", spy)
-    if grad:
-        scene = dataclasses.replace(
-            scene, mtl_base_color=scene.mtl_base_color.clone()
-            .requires_grad_())
+    scene = _recording(scene, grad)
+    data = integrator.TraceData.from_scene(scene)
+    on_card = rend.decide_route(data, cfg, "cuda", recording=grad)
+    assert on_card.shade_kernels == (case == "cpu_lanes")
+    pix = torch.arange(cfg.n_pixels)
     before = _counts()
     with torch.set_grad_enabled(grad):
-        img = rend.render_frame(scene, cfg, prng_key(11))
+        state = rend.prepare_state(scene, cfg)
+        img = rend.render_pixel_ids(state, cfg, pix, prng_key(11))
+        want = rend.render_pixel_ids(
+            dataclasses.replace(state, route=Route(state.route.intersector)),
+            cfg, pix, prng_key(11))
     assert _counts()[:2] == before[:2]
-    assert asked and all(a == (case == "cpu_lanes") for a in asked)
-    monkeypatch.setattr(integrator, "fused_shading", lambda *a: False)
-    with torch.set_grad_enabled(grad):
-        want = rend.render_frame(scene, cfg, prng_key(11))
-    assert torch.equal(img, want)
+    assert state.route == Route("dense")
+    assert torch.equal(img, want) and img.requires_grad == grad
 
 
 def test_the_rule_engages_on_cuda_lanes_only():
-    """Reference mode, untextured, 0-6 lights, no replay, no recording:
-    the rule engages on a card and nowhere else."""
+    """Reference mode, untextured, 0-6 lights, no recording: the route
+    takes the kernels on a card and nowhere else; on kernel B's route
+    too, where the modular loop queries its hits itself (the tools), but
+    replays no graphs."""
     data = integrator.TraceData.from_scene(_lit_room(6))
-    assert integrator.fused_shading(data, CFG, "cuda", False, False)
-    assert integrator.fused_shading(data, CFG, torch.device("cuda", 1),
-                                    False, False)
-    assert not integrator.fused_shading(data, CFG, "cpu", False, False)
-    assert not integrator.fused_shading(data, CFG, "cuda", True, False)
-    assert not integrator.fused_shading(data, CFG, "cuda", False, True)
+    assert rend.decide_route(data, CFG, "cuda").shade_kernels
+    assert rend.decide_route(data, CFG, torch.device("cuda", 1)
+                             ).shade_kernels
+    assert not rend.decide_route(data, CFG, "cpu").shade_kernels
+    assert not rend.decide_route(data, CFG, "cuda", recording=True
+                                 ).shade_kernels
+    assert rend.decide_route(
+        data, dataclasses.replace(CFG, megakernel=True), "cuda",
+        graphs=True) == Route("dense", megakernel=True, shade_kernels=True)
 
 
 @pytest.mark.parametrize("isect,n_lights", [("dense", 0), ("dense", 3),
@@ -129,24 +138,105 @@ def test_the_rule_engages_on_cuda_lanes_only():
                                             ("packet", 1)])
 def test_the_kernels_route_equals_the_torch_loop(isect, n_lights,
                                                  monkeypatch):
-    """The kernels' route run on their twins (the rule forced to engage
+    """The kernels' route run on their twins (a route that asks for them
     on the CPU): the carry as [N, 3] rows, the queries' masks, the
     ragged last chunk; the image equals the torch loop's bit for bit."""
     scene = _lit_room(n_lights)
     cfg = dataclasses.replace(CFG, intersector=isect)
     state = rend.prepare_state(scene, cfg)
-    want, _ = _render(state, cfg, prng_key(3), False, monkeypatch)
-    monkeypatch.setattr(integrator, "fused_shading", lambda *a: True)
+    assert state.route == Route(isect)
+    want, _ = _render(state, cfg, prng_key(3))
     calls = []
-    real = shade.close_bounce
+    real = shade._close_bounce_torch
 
     def spy(*args):
         calls.append(1)
         return real(*args)
 
-    monkeypatch.setattr(integrator, "close_bounce", spy)
-    got, _ = _render(state, cfg, prng_key(3))
+    monkeypatch.setattr(shade, "_close_bounce_torch", spy)
+    got, _ = _render(_with(state, shade_kernels=True), cfg, prng_key(3))
     assert calls and torch.equal(got, want)
+
+
+def _scene(name, n_lights=0, textured=False):
+    """A scene of the route cases: a benchmark configuration's, or the
+    lit sphere room."""
+    if name == "room":
+        return _lit_room(n_lights, textured=textured)
+    config = json.loads((bench.ROOT / f"portbench/configs/{name}.json")
+                        .read_text())
+    return FlatScene.from_numpy(scenes.build(config), "cpu")
+
+
+TETRA = RenderConfig(width=1920, height=1080, spp=16, max_depth=8)
+# case: (scene, cfg, device, recording, the caller keeps graphs, route)
+ROUTES = {
+    "cornell": (("cornell",), RenderConfig(), "cuda", False, True,
+                Route("dense", megakernel=True, shade_kernels=True)),
+    "tetra": (("spd-tetra",), TETRA, "cuda", False, True,
+              Route("packet", shade_kernels=True, graphs=True)),
+    "tetra_warm_up": (("spd-tetra",), TETRA, "cuda", False, False,
+                      Route("packet", shade_kernels=True)),
+    "room_modular": (("room",), CFG, "cuda", False, True,
+                     Route("dense", shade_kernels=True, graphs=True)),
+    "bvh": (("room",), RenderConfig(intersector="bvh"), "cuda", False, True,
+            Route("bvh", shade_kernels=True)),
+    "bruteforce": (("room",), RenderConfig(intersector="bruteforce"), "cuda",
+                   False, True, Route("bruteforce", shade_kernels=True)),
+    "physical": (("room", 3), RenderConfig(mode="physical"), "cuda", False,
+                 True, Route("dense")),
+    "textured": (("room", 0, True), CFG, "cuda", False, True,
+                 Route("dense")),
+    "seven_lights": (("room", 7), RenderConfig(), "cuda", False, True,
+                     Route("dense", graphs=True)),
+    "train_step": (("room",), RenderConfig(), "cuda", True, False,
+                   Route("dense", megakernel=True)),
+    "train_step_tetra": (("spd-tetra",), TETRA, "cuda", True, False,
+                         Route("packet")),
+    "cpu_lanes": (("room",), CFG, "cpu", False, True, Route("dense")),
+    "textured_megakernel": (("room", 0, True), RenderConfig(), "cuda", False,
+                            True, Route("dense", megakernel=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_the_route_of_each_caller(case):
+    """The route `decide_route` gives each caller's frame, with the lanes
+    on a card (no card needed) unless said: `Renderer.render` keeps
+    graphs; the benchmark's warm-up (`prepare_state` and
+    `render_pixel_ids` under inference mode), `render_frame_sharded`,
+    `render_aov` and the tools keep none; a train step records. Kernel
+    B's textured route runs its hits-only instance and the shading
+    replay, which the shade kernels never shade."""
+    (name, *args), cfg, device, recording, graphs, want = ROUTES[case]
+    data = integrator.TraceData.from_scene(_scene(name, *args))
+    assert rend.decide_route(data, cfg, device, recording, graphs) == want
+
+
+@pytest.mark.parametrize("case", ["recording", "stored_hits", "physical",
+                                  "textured", "seven_lights"])
+def test_shade_kernels_refuse_what_they_cannot_shade(case):
+    """Shade kernels asked for where they cannot be right raise: under
+    autograd, on stored hits (kernel B's replay), in physical mode, on a
+    textured scene, with more than MAX_LIGHTS lights."""
+    scene = _recording(_lit_room(7 if case == "seven_lights" else 1,
+                                 textured=case == "textured"),
+                       case == "recording")
+    cfg = dataclasses.replace(
+        CFG, mode="physical" if case == "physical" else "reference")
+    state = rend.prepare_state(scene, cfg)
+    assert not state.route.shade_kernels
+    o, d, keys = rend.lane_rays(scene, cfg, torch.arange(4), prng_key(2))
+    stored = None
+    if case == "stored_hits":
+        n, depth = o.shape[0], cfg.max_depth
+        stored = (torch.full((depth, n), -1), torch.zeros((depth, n)),
+                  torch.zeros((depth, n, 2)), torch.full((depth, n), -1),
+                  torch.zeros((depth, n), dtype=torch.int64))
+    with pytest.raises(ValueError, match="the shade kernels shade"):
+        integrator.trace_paths(state.data, cfg, rend.hit_fn(state, cfg), o,
+                               d, keys, stored_hits=stored,
+                               shade_kernels=True)
 
 
 def _tetra(size_factor, device):
@@ -158,8 +248,7 @@ def _tetra(size_factor, device):
 
 
 @pytest.mark.parametrize("scene_kind", ["pyramids", "rooms", "lit_rooms"])
-def test_shade_kernels_equal_the_torch_loop_on_the_card(scene_kind,
-                                                        monkeypatch):
+def test_shade_kernels_equal_the_torch_loop_on_the_card(scene_kind):
     """On the card, over three keys of one scene and one of a second:
     the kernels' frames op by op and as CUDA graphs kept across the
     frames equal the torch loop's (op by op and as graphs) bit for bit,
@@ -191,10 +280,12 @@ def test_shade_kernels_equal_the_torch_loop_on_the_card(scene_kind,
         for fused in (True, False):
             with torch.inference_mode():
                 state = rend.prepare_state(scene, cfg)
-                bound = rend.bind_graphs(graphs[fused], state, cfg)
-            assert bound.graphs is graphs[fused]
+                bound = rend.prepare_state(scene, cfg, graphs=graphs[fused])
+            assert state.route.shade_kernels and not state.route.graphs
+            assert bound.route.graphs and bound.graphs is graphs[fused]
             for name, st in (("graphs", bound), ("plain", state)):
-                runs[fused, name] = _render(st, cfg, key, fused, monkeypatch)
+                runs[fused, name] = _render(
+                    _with(st, shade_kernels=fused), cfg, key)
         want_img, want_n = runs[False, "plain"]
         assert want_n[:2] == [0, 0] and sum(want_n[3:]) > 0
         for (fused, name), (img, n) in runs.items():

@@ -16,6 +16,7 @@ within rounding of an edge, and moves its pixel by ~1/spp. The
 frames below have no such path: every pixel is within the tolerance.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -179,7 +180,9 @@ def _graph_runs(frames, cfg, monkeypatch):
     with torch.inference_mode():
         for scene, key in frames:
             state = rend.prepare_state(scene, cfg)
-            bound = rend.bind_graphs(graphs, state, cfg)
+            bound = rend.prepare_state(scene, cfg, graphs=graphs)
+            assert bound.route == dataclasses.replace(state.route,
+                                                      graphs=True)
             assert bound.graphs is graphs and state.graphs is None
             pix = torch.arange(cfg.n_pixels, device=scene.device)
             runs = []

@@ -59,8 +59,7 @@ from tinypathtracer_tpu_torch.ops.lights import MAX_LIGHTS, lights_block
 from tinypathtracer_tpu_torch.ops.sampling import lane_draws
 from tinypathtracer_tpu_torch.render.integrator import (Paths, TraceData,
                                                         end_bounce, env_miss,
-                                                        scatter, trace_bounces,
-                                                        trace_paths)
+                                                        scatter, trace_paths)
 from tinypathtracer_tpu_torch.utils import cuda_build
 from tinypathtracer_tpu_torch.utils.math3d import REAL_MAX
 from tinypathtracer_tpu_torch.utils.metrics import span
@@ -87,12 +86,12 @@ def _scene_blocks(data: TraceData, woop: WoopTris):
     return woop.planes, shadeT.contiguous()
 
 
-def mega_available(data: TraceData, cfg, woop: WoopTris) -> bool:
+def mega_available(data: TraceData, cfg, woop: WoopTris = None) -> bool:
     """Static scope check: reference mode, few enough delta lights, and
-    a scene small enough for the megakernel (<= 8192 padded faces),
-    textured or not."""
+    a scene small enough for the megakernel (<= 8192 padded faces, given
+    woop), textured or not."""
     return (cfg.mode == "reference" and data.n_lights <= MAX_LIGHTS
-            and woop.n_padded <= MEGA_MAX_FACES)
+            and (woop is None or woop.n_padded <= MEGA_MAX_FACES))
 
 
 def _check_mega_args(rays8, u8d, planesT, shadeT, lights, depth, n_lights):
@@ -429,10 +428,10 @@ class _MegaStored(torch.autograd.Function):
             leaves = [x.detach().requires_grad_() if need else x
                       for x, need in zip(inputs, needs)]
             # differentiated at once: no per-bounce rematerialisation
-            rad = trace_bounces(TraceData(*leaves[2:]), cfg, None, leaves[0],
-                                leaves[1], None,
-                                unpack_hits(hits, perm, cfg.max_depth), u8d,
-                                remat=False)
+            rad = trace_paths(TraceData(*leaves[2:]), cfg, None, leaves[0],
+                              leaves[1], None,
+                              unpack_hits(hits, perm, cfg.max_depth), u8d,
+                              remat=False)
             wrt = [x for x, need in zip(leaves, needs) if need]
             grads = iter(torch.autograd.grad(rad, wrt, ct, allow_unused=True))
         return (None, None, None) + tuple(next(grads) if need else None

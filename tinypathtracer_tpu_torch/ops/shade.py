@@ -1,7 +1,7 @@
 """The modular loop's reference-mode bounce, shaded between its
 closest-hit queries by two hand-written CUDA kernels (`csrc/shade.cu`).
 
-A bounce of `render/integrator.trace_bounces` in reference mode is a
+A bounce of `render/integrator.trace_paths` in reference mode is a
 draw, the main closest-hit query, the shading of its hits, the extra
 emitter query and one shadow query a delta light, and the step of the
 paths that go on. On the card the shading runs as two kernels around the
@@ -119,7 +119,7 @@ def _shade_hits_cuda(o, d, thr, rad, alive, fid, t, uv, u, data, cfg,
 def _shade_hits_torch(o, d, thr, rad, alive, fid, t, uv, u, data, cfg,
                       lights) -> Shaded:
     """Plain twin of `shade_hits`: the torch code of the modular bounce
-    (`integrator.trace_bounces`) from its main query to its other
+    (`integrator.trace_paths`) from its main query to its other
     queries."""
     from tinypathtracer_tpu_torch.render import integrator as it
 

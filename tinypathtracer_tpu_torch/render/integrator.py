@@ -8,7 +8,7 @@ On the card, with no gradient recorded, a frame's bounces can run as
 CUDA graphs (`BounceGraphs`): the same kernels, one replay a bounce.
 There, in reference mode, two hand-written kernels shade a bounce
 between its queries (`shaded_bounce`, ops/shade.py), the torch code
-below being their plain twin (`fused_shading` says where).
+below being their plain twin; the caller picks (the renderer's `Route`).
 
 "reference" keeps the CUDA reference estimator's quirks on purpose. A
 bounce is shaded by `scatter` and closed by `end_bounce`; the
@@ -574,7 +574,7 @@ HitFn = Callable[..., tuple]
 
 def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
                 origins, dirs, lane_keys, stored_hits=None, uniforms=None,
-                graphs=None):
+                shade_kernels: bool = False, graphs=None, remat=None):
     """Trace a batch of rays to completion; returns radiance [N, 3].
 
     lane_keys: [N, 2] keys, one per ray lane (contiguous int64). Every
@@ -600,54 +600,31 @@ def trace_paths(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
     from them, its closest-hit queries included (stored hits are
     replayed, no kernel runs). Hit ids are detached and the intersectors
     deterministic, so the recompute equals the forward bit for bit.
+    remat=False: not where the caller differentiates at once (the
+    megakernel's stored-hit backward, ops/mega.py).
 
-    graphs: the `BounceGraphs` whose buffers data and closest_hit's
-    tables are (`BounceGraphs.bind`), used when autograd does not record
-    and no stored_hits or uniforms are given (None: every bounce runs op
-    by op).
+    shade_kernels: csrc/shade.cu's kernels shade the bounces
+    (`shaded_bounce`), in reference mode on an untextured scene with at
+    most MAX_LIGHTS lights, hits queried and autograd not recording;
+    elsewhere they raise. graphs: the `BounceGraphs` whose buffers data
+    and closest_hit's tables are (`BounceGraphs.bind`), where hits are
+    queried and autograd does not record; elsewhere they raise.
     """
     fields = [getattr(data, f.name) for f in dataclasses.fields(data)]
-    remat = torch.is_grad_enabled() and any(
+    recording = torch.is_grad_enabled() and any(
         x.requires_grad for x in [origins, dirs] + fields)
-    if remat or stored_hits is not None or uniforms is not None:
-        graphs = None
-    return trace_bounces(data, cfg, closest_hit, origins, dirs, lane_keys,
-                         stored_hits, uniforms, remat, graphs)
-
-
-def serves_on_card(data: TraceData, cfg: RenderConfig, device,
-                   recording: bool) -> bool:
-    """Whether a trace takes the card's serving route: lanes on the card
-    (device), autograd not recording, reference mode, an untextured
-    scene. There the renderer runs the modular loop's bounces as CUDA
-    graphs (`renderer.bind_graphs`, on kernels A and C) and
-    `fused_shading` shades them in csrc/shade.cu's kernels."""
-    return (torch.device(device).type == "cuda" and not recording
-            and cfg.mode == "reference" and not data.textured)
-
-
-def fused_shading(data: TraceData, cfg: RenderConfig, device,
-                  recording: bool, replay: bool) -> bool:
-    """Whether a trace's bounces are shaded by csrc/shade.cu's kernels
-    (`shaded_bounce`): on the card's serving route (`serves_on_card`),
-    with at most MAX_LIGHTS delta lights and hits queried by the loop
-    (replay: stored hits or precomputed uniforms are not). Elsewhere the
-    torch code runs: the CPU, autograd and its recompute, the
-    megakernel's backward, physical mode, textures, more lights."""
-    return (serves_on_card(data, cfg, device, recording) and not replay
-            and data.n_lights <= MAX_LIGHTS)
-
-
-def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
-                  origins, dirs, lane_keys, stored_hits, uniforms,
-                  remat: bool, graphs=None):
-    """`trace_paths` with the rematerialisation chosen by the caller:
-    False where the caller differentiates the result at once and its
-    graph never outlives the call (the megakernel's stored-hit backward,
-    ops/mega.py), so recomputing would only cost time."""
+    remat = recording if remat is None else remat
     physical = cfg.mode == "physical"
-    if physical and (stored_hits is not None or uniforms is not None):
+    replay = stored_hits is not None or uniforms is not None
+    if physical and replay:
         raise ValueError("stored_hits and uniforms are reference mode only")
+    if graphs is not None and (recording or replay):
+        raise ValueError("graphs need queried hits, autograd not recording")
+    if shade_kernels and (recording or replay or physical or data.textured
+                          or data.n_lights > MAX_LIGHTS):
+        raise ValueError("the shade kernels shade reference mode, untextured, "
+                         f"<= {MAX_LIGHTS} lights, queried hits, no autograd")
+
     def hit_query(o, d, mask):
         # the discrete traversal is detached; _HitSurface restores the
         # surface point's gradient
@@ -655,8 +632,7 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
         return fid, t.detach(), uv.detach()
 
     lights = lights_block(data) if graphs is None else graphs.lights
-    if fused_shading(data, cfg, origins.device, remat,
-                     stored_hits is not None or uniforms is not None):
+    if shade_kernels:
         # the radiance copied out: a graph's replay overwrites its outputs
         return _trace_loop(
             _start_rows, functools.partial(shaded_bounce, data, cfg,
@@ -726,7 +702,7 @@ def trace_bounces(data: TraceData, cfg: RenderConfig, closest_hit: HitFn,
 
 def _trace_loop(start, bounce, radiance, origins, dirs, lane_keys,
                 max_depth: int, graphs, remat: bool = False):
-    """radiance(the last carry) of trace_bounces' loop over a chunk:
+    """radiance(the last carry) of trace_paths' loop over a chunk:
     carry = start(origins, dirs), then carry = bounce(depth, lane_keys,
     *carry) a bounce, each rematerialised where remat, as graphs'
     replays where graphs is given. A carry holds alive last."""
@@ -749,7 +725,7 @@ def _trace_loop(start, bounce, radiance, origins, dirs, lane_keys,
 
 def shaded_bounce(data: TraceData, cfg: RenderConfig, hit_query, lights,
                   depth: int, keys, o, d, thr, rad, alive):
-    """One reference-mode bounce of trace_bounces' loop with its shading
+    """One reference-mode bounce of trace_paths' loop with its shading
     in two kernels (ops/shade.py: `shade_hits` after the main query,
     `close_bounce` after the extra emitter and shadow queries): the same
     draws, queries and next carry, bit for bit, as the torch code. The
@@ -764,7 +740,7 @@ def shaded_bounce(data: TraceData, cfg: RenderConfig, hit_query, lights,
 
 
 def _start(origins, dirs):
-    """The carry of trace_bounces' torch loop before the first bounce."""
+    """The carry of trace_paths' torch loop before the first bounce."""
     st = Paths.start(origins.unbind(dim=1), dirs.unbind(dim=1))
     return (*st.o, *st.d, *st.thr, *st.rad, st.alive,
             torch.zeros_like(st.thr[0]), st.alive)
@@ -845,7 +821,7 @@ class BounceGraphs:
         return self.bound
 
     def trace(self, start, bounce, lanes, max_depth: int):
-        """The loop of trace_bounces over a chunk's lanes (origins [N,
+        """The loop of trace_paths over a chunk's lanes (origins [N,
         3], dirs [N, 3], keys [N, 2]); returns its last carry."""
         n = lanes[0].shape[0]
         if n == 0 or max_depth < 1 or (n, 0) not in self.warm:

@@ -12,8 +12,9 @@ qualifies and `cfg.megakernel` is set, else the modular bounce loop
 (render/integrator.py) on the dense closest hit (ops/dense.py) or,
 above 8192 padded faces or on request, the packet traversal
 (ops/packet.py): `resolve_intersector`. On the card, in reference mode
-on an untextured scene, `Renderer.render` replays each bounce of the
-modular loop on kernel A or C as a CUDA graph (`bind_graphs`).
+on an untextured scene, csrc/shade.cu shades the modular loop's bounces
+and `Renderer.render` replays them on kernel A or C as CUDA graphs. A
+frame's `Route` (`decide_route`) holds these choices.
 Physical mode always runs the modular loop (the megakernel is reference
 mode only). The oracles "bvh" (the LBVH
 walk, ops/traverse.py) and "bruteforce" (ops/intersect.py) run the
@@ -25,7 +26,8 @@ Under a torch profiler the frame records its layers as ranges
 frame's tables), `tpt.chunk` (one chunk), `tpt.keys` (the threefry key
 chain), `tpt.kernel_b` (the megakernel's launch), `tpt.bounce` (one
 bounce of the modular loop, its closing host sync included),
-`tpt.kernel_c` (one launch of the packet traversal) and `tpt.film`.
+`tpt.kernel_c` (one launch of the packet traversal), `tpt.shade` (one
+launch of a shade kernel) and `tpt.film`.
 
 Kernels run where the scene's tensors live: on CUDA the hand-written
 kernels, on the CPU their plain PyTorch twins. `render_pixel_ids` and
@@ -49,7 +51,8 @@ from tinypathtracer_tpu_torch.ops.dense import (WoopTris, closest_hit_dense,
                                                 precompute_woop)
 from tinypathtracer_tpu_torch.ops.intersect import closest_hit_bruteforce
 from tinypathtracer_tpu_torch.ops.lbvh import BVH, build_lbvh, tree_depth
-from tinypathtracer_tpu_torch.ops.mega import (MEGA_MAX_FACES, mega_available,
+from tinypathtracer_tpu_torch.ops.mega import (MAX_LIGHTS, MEGA_MAX_FACES,
+                                               mega_available,
                                                trace_paths_mega)
 from tinypathtracer_tpu_torch.ops.packet import (PacketTris,
                                                  closest_hit_packet,
@@ -59,7 +62,6 @@ from tinypathtracer_tpu_torch.ops.traverse import closest_hit_bvh
 from tinypathtracer_tpu_torch.render import film, raygen
 from tinypathtracer_tpu_torch.render.integrator import (BounceGraphs,
                                                         TraceData,
-                                                        serves_on_card,
                                                         trace_paths)
 from tinypathtracer_tpu_torch.utils import native
 from tinypathtracer_tpu_torch.utils.metrics import span
@@ -69,19 +71,32 @@ from tinypathtracer_tpu_torch.utils.metrics import span
 _CAM_TAG = 0x00CA_0CA1
 
 
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """What a frame runs (`decide_route`): the modular loop's intersector,
+    whether kernel B traces each chunk, whether csrc/shade.cu shades the
+    modular loop's bounces that query their hits, and whether those
+    replay as the caller's CUDA graphs (`BounceGraphs`)."""
+
+    intersector: str
+    megakernel: bool = False
+    shade_kernels: bool = False
+    graphs: bool = False
+
+
 @dataclasses.dataclass
 class PipelineState:
     """What the per-pixel render needs: the scene, its world-space trace
-    data and the tables of the intersector it resolved to, which
-    `hit_fn` dispatches on: the packet traversal's chunk tables (whose
-    `woop` is `woop`), else the LBVH, else the Woop triangles of the
-    dense closest hit (kernels A and B), else none (the brute force).
-    graphs: the CUDA graphs that the modular loop's bounces run as, whose
-    buffers data and the tables are (`bind_graphs`); None: op by op."""
+    data, its route and its intersector's tables: the packet traversal's
+    chunk tables (whose `woop` is `woop`), the LBVH, the Woop triangles
+    of the dense closest hit (kernels A and B), or none (brute force).
+    graphs: those the bounces replay as, whose buffers data and the
+    tables are (`bind_graphs`); None: op by op."""
 
     scene: FlatScene
     data: TraceData
-    woop: Optional[WoopTris]
+    route: Route
+    woop: Optional[WoopTris] = None
     packet: Optional[PacketTris] = None
     bvh: Optional[BVH] = None
     graphs: Optional[BounceGraphs] = None
@@ -97,28 +112,48 @@ def resolve_intersector(cfg: RenderConfig, n_faces: int) -> str:
     return cfg.intersector
 
 
+def decide_route(data: TraceData, cfg: RenderConfig, device,
+                 recording: bool = False, graphs: bool = False) -> Route:
+    """The route of a frame of data under cfg, its lanes on device.
+    recording: grad enabled and a scene tensor requires a gradient;
+    graphs: the caller keeps CUDA graphs across frames. The card serves
+    where autograd does not record, in reference mode, untextured: the
+    shade kernels up to MAX_LIGHTS lights, graphs on kernel A or C."""
+    isect = resolve_intersector(cfg, data.tri_verts.shape[0])
+    mega = cfg.megakernel and isect == "dense" and mega_available(data, cfg)
+    serves = (torch.device(device).type == "cuda" and not recording
+              and cfg.mode == "reference" and not data.textured)
+    return Route(isect, mega, serves and data.n_lights <= MAX_LIGHTS,
+                 serves and graphs and not mega
+                 and isect in ("dense", "packet"))
+
+
 def prepare_state(scene: FlatScene, cfg: RenderConfig,
-                  prebuilt_bvh: Optional[BVH] = None) -> PipelineState:
-    """Trace data and intersector tables of one frame. prebuilt_bvh (the
-    "bvh" route): a tree built elsewhere (host_build_bvh), used with
-    this frame's triangles."""
+                  prebuilt_bvh: Optional[BVH] = None,
+                  graphs: Optional[BounceGraphs] = None) -> PipelineState:
+    """Trace data, route and intersector tables of one frame. prebuilt_bvh
+    (the "bvh" route): a tree built elsewhere (host_build_bvh), used with
+    this frame's triangles. graphs: bound where the route replays them."""
     with span("tpt.prepare"):
         data = TraceData.from_scene(scene)
+        recording = torch.is_grad_enabled() and any(
+            t.requires_grad for t in vars(scene).values())
+        route = decide_route(data, cfg, scene.device, recording,
+                             graphs is not None)
         # the intersector's tables carry no gradient (hit ids are detached)
         tri_verts = data.tri_verts.detach()
-        isect = resolve_intersector(cfg, tri_verts.shape[0])
-        state = PipelineState(scene=scene, data=data, woop=None)
-        if isect == "packet":
+        state = PipelineState(scene=scene, data=data, route=route)
+        if route.intersector == "packet":
             state.packet = precompute_packet(tri_verts)
             state.woop = state.packet.woop
-        elif isect == "dense":
+        elif route.intersector == "dense":
             state.woop = precompute_woop(tri_verts)
-        elif isect == "bvh":
+        elif route.intersector == "bvh":
             state.bvh = (build_lbvh(tri_verts) if prebuilt_bvh is None
                          else dataclasses.replace(
                              prebuilt_bvh.to(scene.device),
                              tri_verts=tri_verts))
-        return state
+    return bind_graphs(graphs, state) if route.graphs else state
 
 
 def host_build_bvh(scene: FlatScene, pad_rel: float = 1e-5) -> BVH:
@@ -137,13 +172,14 @@ def host_build_bvh(scene: FlatScene, pad_rel: float = 1e-5) -> BVH:
 
 
 def hit_fn(state: PipelineState, cfg: RenderConfig):
-    """The modular loop's closest_hit on the state's tables."""
-    if state.packet is not None:
+    """The modular loop's closest_hit: the route's, on the state's tables."""
+    isect = state.route.intersector
+    if isect == "packet":
         return functools.partial(closest_hit_packet, pk=state.packet)
-    if state.bvh is not None:
+    if isect == "bvh":
         return functools.partial(closest_hit_bvh, bvh=state.bvh,
                                  stack_depth=cfg.stack_depth)
-    if state.woop is not None:
+    if isect == "dense":
         return functools.partial(closest_hit_dense, woop=state.woop)
     tri_verts = state.data.tri_verts.detach()
     return functools.partial(closest_hit_bruteforce, tri_verts=tri_verts,
@@ -170,24 +206,9 @@ def lane_rays(scene: FlatScene, cfg: RenderConfig, pix, key,
     return o, d, keys
 
 
-def uses_megakernel(state: PipelineState, cfg: RenderConfig) -> bool:
-    """Whether a chunk of the state runs the megakernel (kernel B)."""
-    return (cfg.megakernel and state.packet is None
-            and state.woop is not None
-            and mega_available(state.data, cfg, state.woop))
-
-
-def bind_graphs(graphs: BounceGraphs, state: PipelineState,
-                cfg: RenderConfig) -> PipelineState:
+def bind_graphs(graphs: BounceGraphs, state: PipelineState) -> PipelineState:
     """The state bound to graphs, its trace data and closest-hit tables
-    in their buffers (`BounceGraphs.bind`), where the modular loop's
-    bounces run as CUDA graphs: on the card's serving route
-    (`integrator.serves_on_card`, grad disabled), on kernel C or kernel
-    A (not the megakernel). The state as it was elsewhere."""
-    if not (serves_on_card(state.data, cfg, state.scene.device,
-                           torch.is_grad_enabled())
-            and state.woop is not None and not uses_megakernel(state, cfg)):
-        return state
+    (kernel C's or A's) in their buffers (`BounceGraphs.bind`)."""
     if state.packet is not None:
         data, packet = graphs.bind(state.data, state.packet)
         return dataclasses.replace(state, data=data, packet=packet,
@@ -206,8 +227,7 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key,
     graphs (`bind_graphs`) runs the modular loop's bounces as CUDA
     graphs; the image is the same bit for bit as op by op."""
     spp = cfg.spp if spp is None else spp
-    data = state.data
-    use_mega = uses_megakernel(state, cfg)
+    data, route = state.data, state.route
     hit = hit_fn(state, cfg)
     n = pix.shape[0]
     # all spp of a pixel stay in one chunk (the sample sum is in-chunk)
@@ -219,10 +239,11 @@ def render_pixel_ids(state: PipelineState, cfg: RenderConfig, pix, key,
             m = chunk_pix.shape[0]
             o, d, keys = lane_rays(state.scene, cfg, chunk_pix, key, spp,
                                    sample_offset)
-            if use_mega:
+            if route.megakernel:
                 rad = trace_paths_mega(data, cfg, state.woop, o, d, keys)
             else:
                 rad = trace_paths(data, cfg, hit, o, d, keys,
+                                  shade_kernels=route.shade_kernels,
                                   graphs=state.graphs)
             out.append(rad.reshape(m, spp, 3).sum(dim=1))
     return torch.cat(out, dim=0)
@@ -234,11 +255,8 @@ def render_frame(scene: FlatScene, cfg: RenderConfig, key,
                  graphs: Optional[BounceGraphs] = None):
     """Render one frame; returns the radiance SUM image [H, W, 3] over
     spp samples from sample_offset on (render_pixel_ids). graphs: a
-    `BounceGraphs` kept across frames, used where `bind_graphs` binds
-    the frame's state to it."""
-    state = prepare_state(scene, cfg, prebuilt_bvh)
-    if graphs is not None:
-        state = bind_graphs(graphs, state, cfg)
+    `BounceGraphs` kept across frames (`prepare_state`)."""
+    state = prepare_state(scene, cfg, prebuilt_bvh, graphs)
     pix = torch.arange(cfg.n_pixels, dtype=torch.int64, device=scene.device)
     return render_pixel_ids(state, cfg, pix, key, spp, sample_offset).reshape(
         cfg.height, cfg.width, 3)
@@ -308,31 +326,35 @@ class Renderer:
             self._bvh_cache = {id(scene): bvh}       # single-entry cache
         return bvh
 
-    def render(self, scene: FlatScene, key):
-        """Returns the mean-radiance image [H, W, 3], top-down rows."""
+    def _frame(self, scene: FlatScene, key, graphs=None, spp=None,
+               sample_offset: int = 0, image: bool = False):
+        """render_frame's radiance sum under inference mode in a
+        `tpt.frame` span, or with image the mean-radiance image."""
         with torch.inference_mode(), span("tpt.frame"):
             self._validate_stack(scene)
             rad_sum = render_frame(scene.to(self.device), self.cfg,
                                    key.to(self.device), self._bvh_for(scene),
-                                   graphs=self._graphs)
+                                   spp, sample_offset, graphs)
+            if not image:
+                return rad_sum
             with span("tpt.film"):
                 return film.to_image(rad_sum, self.cfg.spp)
+
+    def render(self, scene: FlatScene, key):
+        """Returns the mean-radiance image [H, W, 3], top-down rows."""
+        return self._frame(scene, key, self._graphs, image=True)
 
     def progressive(self, width=None, height=None):
         """A resumable accumulator bound to this pipeline
         (utils/checkpoint.ProgressiveRender): each step renders the next
-        samples of the frame by their absolute indices. width and height
-        are accepted as the JAX package's are and ignored: the image is
-        cfg's."""
+        samples of the frame by their absolute indices (no graphs).
+        width and height are accepted as the JAX package's are and
+        ignored: the image is cfg's."""
         from tinypathtracer_tpu_torch.utils.checkpoint import \
             ProgressiveRender
 
         def fn(scene, key, sample_offset, n_samples):
-            with torch.inference_mode(), span("tpt.frame"):
-                self._validate_stack(scene)
-                return render_frame(scene.to(self.device), self.cfg,
-                                    key.to(self.device), self._bvh_for(scene),
-                                    n_samples, sample_offset)
+            return self._frame(scene, key, None, n_samples, sample_offset)
 
         return ProgressiveRender(fn, self.cfg.width, self.cfg.height,
                                  self.device)

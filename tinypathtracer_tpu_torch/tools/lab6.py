@@ -112,7 +112,7 @@ def main(argv=None):
             dd, cfg, woop, o, d, keys), data),
         "modular_fwd": lambda: trace_paths(
             data, cfg, functools.partial(closest_hit_dense, woop=woop), o, d,
-            keys).sum(),
+            keys, shade_kernels=state.route.shade_kernels).sum(),
     }
     res = {"device": common.device_name(dev)}
     for name, fn in stages.items():

@@ -211,7 +211,7 @@ def first_bounce(state, cfg, o, d, keys):
         return dense.closest_hit_dense(o_, d_, state.woop, mask=mask)
 
     trace_paths(state.data, dataclasses.replace(cfg, max_depth=2), spy, o, d,
-                keys)
+                keys, shade_kernels=state.route.shade_kernels)
     return seen[2]        # camera, extra emitter query, then bounce 1
 
 

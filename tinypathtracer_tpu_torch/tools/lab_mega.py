@@ -240,7 +240,8 @@ def tile_skip_share(scene, cfg, key, n_paths, warp: int = 32,
         return closest_hit_dense(o_, d_, woop, mask=mask)
 
     with torch.no_grad():
-        trace_paths(data, cfg, spy, o, d, keys)
+        trace_paths(data, cfg, spy, o, d, keys,
+                    shade_kernels=state.route.shade_kernels)
     # the tiles' boxes, widened as ops/packet widens chunk boxes
     fp = woop.n_padded
     tv = data.tri_verts[woop.perm]

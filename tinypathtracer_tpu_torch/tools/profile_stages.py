@@ -97,7 +97,8 @@ def main(argv=None):
     with torch.inference_mode():
         def glue():
             o, d, keys = lane_rays(scene, cfg, pix, prng_key(5, dev))
-            return trace_paths(state.data, cfg, stub_hit, o, d, keys)
+            return trace_paths(state.data, cfg, stub_hit, o, d, keys,
+                               shade_kernels=state.route.shade_kernels)
 
         t_glue = common.timed_ms(glue, dev, args.reps) / 1e3
     res["glue_frame_s"] = t_glue * n_chunks
