@@ -65,7 +65,7 @@ non-zero):
      sums with atomics in no fixed order);
   9. kernel C (the packet traversal) against its plain twin on the card
      in the 61,452-face scene (65,536 slots, 128 chunks): 65,536 random
-     rays, a ragged batch and a half-masked batch; (slot, t, u, v) and
+     rays, a ragged batch and a half-masked batch; (fid, t, u, v) and
      the visit counts must be exactly equal; on the ragged and the
      half-masked batch the chunks each block staged must equal the plain
      schedule model's (ops/packet._packet_schedule);
@@ -270,6 +270,8 @@ TWIN_RAYS = 65536
 GATED_CAMERA_RAYS = 1 << 20
 # kernel C against its twin: (rays, half of them masked)
 TWIN_BATCHES = ((65536, False), (1037, False), (65536, True))
+# kernel C's outputs (ops/packet.packet_hit)
+HIT_NAMES = ("fid", "t", "uv", "visits")
 MEGA_ATOL = 1e-5
 # kernel B's grid forced small in phase 3, so that each lane serves
 # several paths of a small batch
@@ -560,23 +562,26 @@ def cuda_ms(fn, reps, warm=True):
     return times[len(times) // 2], out
 
 
-def packet_work(rays, visits, pk):
+def packet_work(origins, hits, pk):
     """(operations, bytes) of the packet traversal's function on rays
-    [N, 8] whose visit counts are `visits`: per visited chunk tc pair
-    tests, o' at least once per (distinct origin, chunk) pair
-    (common.origin_visits), and per live ray one slab test of each of
-    the C boxes and its reciprocals. Bytes: rays [N, 8] read, (t, slot,
-    u, v, visits) written, the planes and the boxes read once."""
+    from origins [N, 3] whose hits are kernel C's (fid, t, uv, visits):
+    per visited chunk tc pair tests, o' at least once per (distinct
+    origin, chunk) pair (common.origin_visits), and per live ray one
+    slab test of each of the C boxes and its reciprocals. Bytes: the
+    origin and direction rows and the mask read, (fid, t, u, v, visits)
+    written, the planes and the boxes read once, and a hit's face id
+    from the slot -> face table."""
     from tinypathtracer_tpu_torch.tools import common
 
+    fid, visits = hits[0], hits[3]
     live = visits > 0
     ops = (common.pair_ops(int(visits.sum()) * pk.tc,
-                           common.origin_visits(rays[live, 0:3],
+                           common.origin_visits(origins[live],
                                                 visits[live]) * pk.tc)
            + int(live.sum()) * (pk.n_chunks * common.OPS_SLAB
                                 + common.OPS_RECIPROCALS))
-    nbytes = (visits.shape[0] * (32 + 20) + pk.woop.n_padded * 48
-              + pk.n_chunks * 32)
+    nbytes = (visits.shape[0] * (25 + 24) + int((fid >= 0).sum()) * 8
+              + pk.woop.n_padded * 48 + pk.n_chunks * 32)
     return ops, nbytes
 
 
@@ -706,16 +711,15 @@ def dense_vs_twin(T, sky, dev):
     return err
 
 
-def packet_stagings(rays, pk):
-    """Kernel C's outputs on rays and the chunks each of its blocks
+def packet_stagings(origins, dirs, mask, pk):
+    """Kernel C's outputs on a query and the chunks each of its blocks
     staged (a launch that reports them; the route's launches do not)."""
     from tinypathtracer_tpu_torch.ops import packet
 
-    n = rays.shape[0]
+    n = origins.shape[0]
     stagings = torch.zeros((-(-n // packet.PACKET_BLOCK),),
-                           dtype=torch.int32, device=rays.device)
-    out = packet._packet_cuda(rays, pk.woop.planes, pk.boxes, pk.tc,
-                              stagings=stagings)
+                           dtype=torch.int32, device=origins.device)
+    out = packet._packet_cuda(origins, dirs, mask, pk, stagings=stagings)
     return out, stagings
 
 
@@ -731,28 +735,28 @@ def packet_vs_twin(pk, dev):
     for n, half in TWIN_BATCHES:
         alive = (torch.rand(n, generator=gen) < 0.5) if half else None
         rays = random_rays(n, gen, alive).to(dev)
-        got = packet.packet_hit(rays, pk.woop.planes, pk.boxes, pk.tc)
-        want = packet._packet_torch(rays, pk.woop.planes, pk.boxes, pk.tc)
+        query = (rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous(),
+                 None if alive is None else alive.to(dev))
+        got = packet.packet_hit(*query, pk)
+        want = packet._packet_torch(*query, pk)
         torch.cuda.synchronize()
         what = f"kernel C vs twin, {n} rays{', half masked' if half else ''}"
-        check_equal(got, want, what, ("t", "slot", "uv", "visits"))
+        check_equal(got, want, what, HIT_NAMES)
         err = max(err, float((got[2] - want[2]).abs().max()))
         v = got[3].float()
         log(f"{what} x {pk.woop.n_padded} slots ({pk.n_chunks} chunks of "
             f"{pk.tc}): exact, visits included; hit share "
-            f"{float((got[1] >= 0).float().mean()):.4f}, visits per live ray "
+            f"{float((got[0] >= 0).float().mean()):.4f}, visits per live ray "
             f"{float(v[v > 0].mean()):.2f} (max {int(v.max())})")
-        if half and bool((got[3][~alive.to(dev)] != 0).any()):
+        if half and bool((got[3][~query[2]] != 0).any()):
             raise AssertionError("a dead lane of kernel C tested a chunk")
         if n % packet.PACKET_BLOCK or half:
-            counted, stagings = packet_stagings(rays, pk)
-            model, m_stagings, _ = packet._packet_schedule(
-                rays, pk.woop.planes, pk.boxes, pk.tc)
+            counted, stagings = packet_stagings(*query, pk)
+            model, m_stagings, _ = packet._packet_schedule(*query, pk)
             torch.cuda.synchronize()
             check_equal(counted, want, f"{what}, counting launch",
-                        ("t", "slot", "uv", "visits"))
-            check_equal(model, want, f"schedule model, {what}",
-                        ("t", "slot", "uv", "visits"))
+                        HIT_NAMES)
+            check_equal(model, want, f"schedule model, {what}", HIT_NAMES)
             check_equal([stagings], [m_stagings],
                         f"kernel C's stagings vs the schedule model, {what}",
                         ("stagings",))
@@ -790,26 +794,25 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
     for name, (oo, dd, mask) in (("camera", (o, d, None)),
                                  ("first-bounce", (ob, db, alive))):
         n = oo.shape[0]
-        a = torch.ones((n, 1), device=dev) if mask is None \
-            else mask.float()[:, None]
-        rays = torch.cat([oo, dd, a, torch.zeros((n, 1), device=dev)],
-                         dim=1).contiguous()
-        c_ms, got = cuda_ms(lambda: packet.packet_hit(
-            rays, pk.woop.planes, pk.boxes, pk.tc), 5)
-        a_ms, want = cuda_ms(lambda: dense.dense_hit(
-            rays, pk.woop, None if mask is None else mask.contiguous()), 5)
-        live = a[:, 0] != 0
-        check_equal([x[live] for x in got[:3]], [x[live] for x in want],
-                    f"kernel C vs kernel A, {name} rays",
-                    ("t", "slot", "uv"))
+        query = (oo.contiguous(), dd.contiguous(),
+                 None if mask is None else mask.contiguous())
+        rays = torch.cat([oo, dd, oo.new_zeros((n, 2))], dim=1).contiguous()
+        c_ms, got = cuda_ms(lambda: packet.packet_hit(*query, pk), 5)
+        a_ms, raw = cuda_ms(lambda: dense.dense_hit(rays, pk.woop, query[2]),
+                            5)
+        want = dense.face_hits(*raw, pk.woop)
+        live = torch.ones(n, dtype=torch.bool, device=dev) if mask is None \
+            else mask
+        check_equal(got, want, f"kernel C vs kernel A, {name} rays",
+                    ("fid", "t", "uv"))
         check_equal(packet.closest_hit_packet(oo, dd, pk, mask=mask),
                     dense.closest_hit_dense(oo, dd, pk.woop, mask=mask),
                     f"closest_hit_packet vs closest_hit_dense, {name} rays",
                     ("fid", "t", "uv"))
         err = max(err, float((got[2][live] - want[2][live]).abs().max()))
         v = got[3][live].float()
-        share = float((got[1][live] >= 0).float().mean())
-        work = packet_work(rays, got[3], pk)
+        share = float((got[0][live] >= 0).float().mean())
+        work = packet_work(query[0], got, pk)
         res[name] = (c_ms, work)
         ops, nbytes = work
         log(f"kernel C vs kernel A, {name} rays: {n} lanes, "
@@ -820,9 +823,9 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
             f"{nbytes / 1e6:.1f} MB; the next-key scans add "
             f"{rescan_ops(got[3], pk) / 1e9:.2f} GFLOP), kernel A "
             f"{a_ms:.2f} ms on the same rays")
-        counted, stagings = packet_stagings(rays, pk)
+        counted, stagings = packet_stagings(*query, pk)
         check_equal(counted, got, f"kernel C counting stagings, {name} rays",
-                    ("t", "slot", "uv", "visits"))
+                    HIT_NAMES)
         s = stagings.float()
         staged = float(s.sum()) * pk.tc * 48
         streamed = float(got[3].float().sum()) * pk.tc * 48
@@ -832,15 +835,15 @@ def packet_vs_dense(T, cfg, host_scene, key, dev):
             f"{float(got[3].float().sum() / s.sum()):.2f}; plane bytes "
             f"staged {staged / 1e9:.3f} GB per query (a private stream "
             f"per visit would read {streamed / 1e9:.2f} GB)")
-        unw = packet.packet_hit(rays, bare.woop.planes, bare.boxes, bare.tc)
-        lost = ((unw[1] != want[1]) | (unw[0] != want[0])) & live
+        unw = packet.packet_hit(*query, bare)
+        lost = ((unw[0] != want[0]) | (unw[1] != want[1])) & live
         log(f"  without the box margins kernel C would differ from kernel A "
             f"on {int(lost.sum())} of these live lanes")
         if name == "camera":
             plain_ms, twin = cuda_ms(lambda: packet._packet_torch(
-                rays, pk.woop.planes, pk.boxes, pk.tc), 1, warm=False)
+                *query, pk), 1, warm=False)
             check_equal(got, twin, "kernel C vs twin, camera rays",
-                        ("t", "slot", "uv", "visits"))
+                        HIT_NAMES)
             log(f"kernel C vs twin, {n} camera rays: exact; plain twin "
                 f"{plain_ms:.1f} ms")
     regs, static = packet.kernel_resources()
@@ -1240,9 +1243,9 @@ def frame_packet_bound(render, pk):
 
     real, bounds = packet.packet_hit, []
 
-    def recorded(rays, planes, boxes, tc):
-        out = real(rays, planes, boxes, tc)
-        bounds.append(bound(*packet_work(rays, out[3], pk))[0])
+    def recorded(origins, dirs, mask, tables):
+        out = real(origins, dirs, mask, tables)
+        bounds.append(bound(*packet_work(origins, out, pk))[0])
         return out
 
     recorded.launches = 0       # _packet_cuda counts on the module's name
@@ -1766,11 +1769,9 @@ def query_bounds(st, queries, per):
             work = lab_dense.dense_pairs(rays, st.woop, mask)
         else:
             pk = st.packet
-            rays = torch.cat([o, d, mask.float()[:, None],
-                              o.new_zeros((n, 1))], 1).contiguous()
-            ms, out = cuda_ms(lambda: packet.packet_hit(
-                rays, pk.woop.planes, pk.boxes, pk.tc), 3)
-            work = packet_work(rays, out[3], pk)
+            query = (o.contiguous(), d.contiguous(), mask.contiguous())
+            ms, out = cuda_ms(lambda: packet.packet_hit(*query, pk), 3)
+            work = packet_work(query[0], out, pk)
         b_ms, b_by = bound(*work)
         for k in (kind, "all"):
             rows.setdefault(k, []).append((ms, b_ms, b_by))
@@ -1815,24 +1816,24 @@ def nee_vs_twins(T, scenes, sky, key, pcfg, dev):
                         mask)
                     label = "A"
                     names = ("t", "slot", "uv")
+                    hit = got[1] >= 0
                 else:
                     pk = st.packet
-                    rays = torch.cat([o, d, mask.float()[:, None],
-                                      o.new_zeros((n, 1))], 1).contiguous()
-                    got = packet.packet_hit(rays, pk.woop.planes, pk.boxes,
-                                            pk.tc)
+                    query = (o.contiguous(), d.contiguous(),
+                             mask.contiguous())
+                    got = packet.packet_hit(*query, pk)
                     t0 = time.perf_counter()
-                    want = packet._packet_torch(rays, pk.woop.planes,
-                                                pk.boxes, pk.tc)
+                    want = packet._packet_torch(*query, pk)
                     label = "C"
-                    names = ("t", "slot", "uv", "visits")
+                    names = HIT_NAMES
+                    hit = got[0] >= 0
                 torch.cuda.synchronize()
                 what = (f"kernel {label} vs twin, physical {name}, bounce {b} "
                         f"{kind}, {n} lanes ({int(mask.sum())} live)")
                 check_equal(got, want, what, names)
                 err = max(err, float((got[2] - want[2]).abs().max()))
                 log(f"{what}: exact; hit share of live lanes "
-                    f"{float((got[1][mask] >= 0).float().mean()):.4f}; twin "
+                    f"{float(hit[mask].float().mean()):.4f}; twin "
                     f"{time.perf_counter() - t0:.1f} s")
         errs.append(err)
         label = "A" if st.packet is None else "C"

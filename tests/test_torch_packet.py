@@ -130,24 +130,77 @@ def test_hits_exact_vs_dense(large, masked):
 
 
 def test_kernel_outputs_equal_kernel_a(large):
-    """packet_hit's raw (t, slot, uv) are dense_hit's on live lanes; dead
-    lanes report (REAL_MAX, -1, 0) and 0 visits."""
+    """packet_hit's (fid, t, uv) are kernel A's raw hits through
+    face_hits on live lanes; dead lanes report (-1, REAL_MAX, 0) and 0
+    visits."""
     _, pk = large
-    o, d = _rays(300, seed=5)
-    alive = (np.arange(300) % 3 != 0).astype(np.float32)
-    rays = torch.from_numpy(np.concatenate(
-        [o, d, alive[:, None], np.zeros((300, 1), np.float32)], axis=1))
-    t, slot, uv, visits = packet.packet_hit(rays, pk.woop.planes, pk.boxes,
-                                            pk.tc)
-    dt, dslot, duv = dense.dense_hit(rays, pk.woop)
-    live = torch.from_numpy(alive != 0)
-    assert torch.equal(t[live], dt[live]) and torch.equal(slot[live],
-                                                          dslot[live])
-    assert torch.equal(uv[live], duv[live])
-    assert (t[~live] == dense.REAL_MAX).all() and (slot[~live] == -1).all()
+    o, d = _t(*_rays(300, seed=5))
+    live = torch.arange(300) % 3 != 0
+    fid, t, uv, visits = packet.packet_hit(o, d, live, pk)
+    rays = torch.cat([o, d, torch.zeros((300, 2))], dim=1)
+    want = dense.face_hits(*dense.dense_hit(rays, pk.woop), pk.woop)
+    for g, w in zip((fid, t, uv), want):
+        assert torch.equal(g[live], w[live])
+    assert (fid[~live] == -1).all() and (t[~live] == dense.REAL_MAX).all()
     assert (uv[~live] == 0).all() and (visits[~live] == 0).all()
-    assert t.dtype == torch.float32 and slot.dtype == visits.dtype == \
-        torch.int32
+    assert (fid[live] >= 0).float().mean() > 0.5
+    assert fid.dtype == torch.int64 and t.dtype == uv.dtype == torch.float32
+    assert visits.dtype == torch.int32
+
+
+# (scene, rays, mask: None / "half" / "dead", rows as strided columns of
+# an [N, 8] table); rays not a multiple of PACKET_BLOCK but in
+# "full_blocks" and "empty"
+QUERIES = {"mask_none": (LARGE, 1037, None, False),
+           "mask_partial": (LARGE, 1037, "half", False),
+           "mask_all_dead": (LARGE, 300, "dead", False),
+           "padding_in_last_chunk": (CHUNKED, 700, "half", False),
+           "full_blocks": (LARGE, 512, None, False),
+           "empty": (LARGE, 0, None, False),
+           "strided_rows": (LARGE, 777, "half", True)}
+
+
+@pytest.mark.parametrize("case", list(QUERIES))
+def test_query_contract(large, case):
+    """A query as the bounce holds it, origins and dirs [N, 3] and a bool
+    mask or None: closest_hit_packet and packet_hit give (fid i64, t,
+    uv, visits i32) equal to closest_hit_dense, to face_hits applied to
+    kernel A's raw (t, slot, uv), and to the schedule model (visits
+    included); dead lanes miss with 0 visits. CHUNKED's last chunk of
+    128 slots holds 76 faces and 52 padding slots."""
+    grid, n, masking, strided = QUERIES[case]
+    pk = (large[1] if grid == LARGE
+          else packet.precompute_packet(torch.from_numpy(_tri_verts(grid))))
+    assert pk.woop.n_faces < pk.woop.n_padded
+    if grid == CHUNKED:     # padding in the last chunk, real faces too
+        assert 0 < pk.woop.n_padded - pk.woop.n_faces < pk.tc
+    o, d = _t(*_rays(n, seed=21, lo=-6.0, hi=6.0))
+    mask = {None: None, "dead": torch.zeros(n, dtype=torch.bool),
+            "half": torch.from_numpy(
+                np.random.default_rng(22).random(n) < 0.5)}[masking]
+    if strided:
+        table = torch.cat([o, torch.zeros((n, 2)), d], dim=1)   # [N, 8]
+        o, d = table[:, 0:3], table[:, 5:8]
+        assert not (o.is_contiguous() or d.is_contiguous())
+    got = packet.closest_hit_packet(o, d, pk, mask=mask, with_visits=True)
+    direct = packet.packet_hit(o.contiguous(), d.contiguous(), mask, pk)
+    model, _, _ = packet._packet_schedule(o, d, mask, pk)
+    rays = torch.cat([o, d, torch.zeros((n, 2))], dim=1)
+    raw = dense.face_hits(*dense.dense_hit(rays, pk.woop, mask), pk.woop)
+    for want in (direct, model, raw,
+                 dense.closest_hit_dense(o, d, pk.woop, mask=mask)):
+        for g, w, name in zip(got, want, ("fid", "t", "uv", "visits")):
+            assert torch.equal(g, w), (case, name)
+    fid, t, uv, visits = got
+    assert (fid.dtype, t.dtype, uv.dtype, visits.dtype) == (
+        torch.int64, torch.float32, torch.float32, torch.int32)
+    assert fid.shape == t.shape == visits.shape == (n,) and uv.shape == (n, 2)
+    dead = (torch.zeros(n, dtype=torch.bool) if mask is None else ~mask)
+    assert (fid[dead] == -1).all() and (visits[dead] == 0).all()
+    assert (t[fid < 0] == dense.REAL_MAX).all() and (uv[fid < 0] == 0).all()
+    assert (fid < pk.woop.n_faces).all()
+    if n and masking != "dead":
+        assert (fid[~dead] >= 0).float().mean() > 0.3
 
 
 def test_tie_across_chunks_goes_to_lowest_slot():
@@ -220,12 +273,6 @@ def test_visits_bounded_and_culled(large):
     assert float(near.float().mean()) < float(visits.float().mean())
 
 
-def _ray_table(o, d, alive):
-    return torch.from_numpy(np.concatenate(
-        [o, d, alive[:, None].astype(np.float32),
-         np.zeros((o.shape[0], 1), np.float32)], axis=1))
-
-
 @pytest.fixture(scope="module")
 def large_tables(large):
     """The 14,348-face scene cut into 32 chunks of 512 and 128 of 128."""
@@ -258,16 +305,15 @@ def test_schedule_model_equals_twin(large_tables, block, tc, batch):
     that reaches it later, and random rays stage more than C.)"""
     pk = large_tables[tc]
     n, half = SCHEDULE_BATCHES[batch]
-    o, d = _rays(n, seed=11)
-    alive = (np.random.default_rng(12).random(n) < 0.5 if half
-             else np.ones(n, bool))
-    rays = _ray_table(o, d, alive)
-    want = packet._packet_torch(rays, pk.woop.planes, pk.boxes, pk.tc)
-    got, stagings, served = packet._packet_schedule(
-        rays, pk.woop.planes, pk.boxes, pk.tc, block)
-    for g, w, name in zip(got, want, ("t", "slot", "uv", "visits")):
+    o, d = _t(*_rays(n, seed=11))
+    alive = (torch.from_numpy(np.random.default_rng(12).random(n) < 0.5)
+             if half else None)
+    want = packet._packet_torch(o, d, alive, pk)
+    got, stagings, served = packet._packet_schedule(o, d, alive, pk, block)
+    for g, w, name in zip(got, want, ("fid", "t", "uv", "visits")):
         assert torch.equal(g, w), name
-    assert (got[3][torch.from_numpy(~alive)] == 0).all()
+    if half:
+        assert (got[3][~alive] == 0).all()
     visits = _per_block(got[3], block)
     assert stagings.dtype == torch.int32 and stagings.shape == (
         visits.shape[0],)
@@ -297,13 +343,11 @@ def test_schedule_model_ties_go_to_lowest_slot(slot):
     o = rng.uniform(-4.5, 4.5, (256, 3)).astype(np.float32)
     d = tv[face].mean(axis=0) - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = _ray_table(o, d, np.ones(256, bool))
-    got, _, _ = packet._packet_schedule(rays, pk.woop.planes, pk.boxes,
-                                        pk.tc, 32)
-    want = dense.dense_hit(rays, pk.woop)
+    got, _, _ = packet._packet_schedule(*_t(o, d), None, pk, 32)
+    want = dense.closest_hit_dense(*_t(o, d), pk.woop)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert (got[1] == slot).sum() > 20 and not (got[1] == dup).any()
+    assert (got[0] == face).sum() > 20 and not (got[0] == tv.shape[0]).any()
 
 
 @pytest.mark.parametrize("tc", [128, 512])
@@ -318,10 +362,8 @@ def test_coherent_block_shares_its_stagings(large_tables, tc):
                   rng.uniform(-0.05, 0.05, 512), np.ones(512)],
                  axis=1).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = _ray_table(o, d, np.ones(512, bool))
-    got, stagings, _ = packet._packet_schedule(rays, pk.woop.planes,
-                                               pk.boxes, pk.tc)
-    assert (got[1] >= 0).all()
+    got, stagings, _ = packet._packet_schedule(*_t(o, d), None, pk)
+    assert (got[0] >= 0).all()
     assert (10 * stagings <= _per_block(got[3], 256).sum(dim=1)).all()
 
 
@@ -441,8 +483,34 @@ def test_no_kernel_for_other_devices(large):
     """No silent fallback: a tensor neither on the CPU nor on CUDA
     raises."""
     _, pk = large
+    meta = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        packet.packet_hit(torch.empty((4, 8), device="meta"),
-                          pk.woop.planes.to("meta"), pk.boxes.to("meta"),
-                          pk.tc)
+        packet.packet_hit(meta, meta, None, pk)
 
+
+
+# what kernel C cannot read in place: (origins, dirs, mask, pk) edits
+REFUSED = {
+    "float_mask": lambda o, d, m, pk: (o, d, m.float(), pk),
+    "strided_rows": lambda o, d, m, pk: (
+        torch.cat([o, d], dim=1)[:, 0:3], d, m, pk),
+    "float64_rows": lambda o, d, m, pk: (o.double(), d, m, pk),
+    "short_mask": lambda o, d, m, pk: (o, d, m[1:], pk),
+    "int32_perm": lambda o, d, m, pk: (o, d, m, dataclasses.replace(
+        pk, woop=dataclasses.replace(pk.woop, perm=pk.woop.perm.int()))),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_kernel_c_refuses_what_it_cannot_read_in_place(large, case):
+    """The checks before kernel C's launch: a query it would misread (a
+    float mask, strided or float64 rows, a mask of another length, an
+    int32 slot -> face table) raises rather than launch; the query as
+    the bounce holds it passes."""
+    _, pk = large
+    o, d = _t(*_rays(64, seed=23))
+    mask = torch.arange(64) % 2 == 0
+    packet._check_query(o, d, mask, pk)
+    packet._check_query(o, d, None, pk)
+    with pytest.raises(ValueError, match="kernel C takes"):
+        packet._check_query(*REFUSED[case](o, d, mask, pk))

@@ -7,8 +7,9 @@ torch code everywhere the route declines the kernels, the kernels'
 route, run on the twins, equal to the torch loop bit for bit, and the
 kernels refusing what they cannot shade. On the card (`-k card`): the
 kernels' images equal the torch loop's bit for bit, op by op and as
-CUDA graphs, with the same counted launches. No JAX here: the card runs
-this file.
+CUDA graphs, with the same counted launches; kernel C equals its twin
+on the queries the shaded bounces make, one device kernel a query. No
+JAX here: the card runs this file.
 """
 
 import dataclasses
@@ -292,3 +293,90 @@ def test_shade_kernels_equal_the_torch_loop_on_the_card(scene_kind):
             assert torch.equal(img, want_img), (fused, name)
             assert n[2:] == want_n[2:], (fused, name, n, want_n)
             assert (n[0] > 0 and n[0] == n[1]) if fused else n[:2] == [0, 0]
+
+
+def _card_tetra():
+    """The sf-4 SPD pyramid on the card at 160x90 @4 spp d8 in chunks of
+    4,096 lanes on kernel C, and its state (the shade kernels' route, op
+    by op)."""
+    dev = torch.device("cuda", 0)
+    cfg = RenderConfig(width=160, height=90, spp=4, max_depth=8,
+                       intersector="packet", rays_per_dispatch=4096)
+    with torch.inference_mode():
+        state = rend.prepare_state(_tetra(4, dev), cfg)
+    assert state.route == Route("packet", shade_kernels=True)
+    return state, cfg
+
+
+HITS = ("fid", "t", "uv", "visits")
+
+
+def test_kernel_c_equals_its_twin_on_the_bounces_rows_on_the_card(
+        monkeypatch):
+    """On the card, every query kernel C is given in a tetra frame's
+    bounces (the carry rows and the rows `shade_hits` writes, h and d2,
+    with its bool masks alive and extra, as the bounce holds them): its
+    (fid, t, uv, visits) equal its twin's on the same tensors bit for
+    bit; so do the first bounce's queries unmasked and read as strided
+    columns of an [N, 8] table through closest_hit_packet."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    state, cfg = _card_tetra()
+    queries, real = [], packet.packet_hit
+
+    def recording(origins, dirs, mask, pk):
+        out = real(origins, dirs, mask, pk)
+        queries.append(((origins.clone(), dirs.clone(), mask.clone()), out))
+        return out
+
+    recording.launches = 0      # _packet_cuda counts on the module's name
+    monkeypatch.setattr(packet, "packet_hit", recording)
+    _, n = _render(state, cfg, prng_key(4000000013).to(state.scene.device))
+    monkeypatch.undo()
+    # two queries a bounce (the pyramid has no lights), one launch each
+    assert len(queries) == recording.launches == 2 * n[0] > 0
+    assert all(q[2].dtype == torch.bool for q, _ in queries)
+    hits = 0
+    with torch.inference_mode():
+        for i, (query, out) in enumerate(queries):
+            want = packet._packet_torch(*query, state.packet)
+            for g, w, name in zip(out, want, HITS):
+                assert torch.equal(g, w), (i, name)
+            hits += int((out[0] >= 0).sum())
+        for (o, d, mask), _ in queries[:2]:
+            k = o.shape[0]
+            table = torch.cat([o, o.new_zeros((k, 2)), d], dim=1)
+            for m in (None, mask):
+                want = packet._packet_torch(o, d, m, state.packet)
+                got = packet.closest_hit_packet(
+                    table[:, 0:3], table[:, 5:8], state.packet, mask=m,
+                    with_visits=True)
+                for g, w, name in zip(got, want, HITS):
+                    assert torch.equal(g, w), (m is None, name)
+    assert hits > 0
+
+
+def test_closest_hit_packet_is_one_launch_on_the_card():
+    """On the card one closest_hit_packet call on contiguous rows, with
+    or without a bool mask, runs one kernel on the device, kernel C:
+    nothing packs the query before it or unpacks the hit after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    state, cfg = _card_tetra()
+    dev = state.scene.device
+    pix = torch.arange(cfg.rays_per_dispatch // cfg.spp, device=dev)
+    o, d, _ = rend.lane_rays(state.scene, cfg, pix,
+                             prng_key(4000000017).to(dev))
+    o, d = o.contiguous(), d.contiguous()
+    alive = torch.arange(o.shape[0], device=dev) % 3 != 0
+    act = torch.profiler.ProfilerActivity
+    for mask in (None, alive):
+        packet.closest_hit_packet(o, d, state.packet, mask=mask)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            packet.closest_hit_packet(o, d, state.packet, mask=mask)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation()]
+        assert len(names) == 1 and "packet_hit_kernel" in names[0], names

@@ -12,9 +12,18 @@
 // << 32) | chunk id (the entry distance is >= DELTA > 0, so its bits order
 // like the floats), and stops when the next entry is greater than its best
 // t; inside a chunk it takes a hit on t < best or on t == best with a
-// lower slot. The result is kernel A's (t, slot, u, v) bit for bit: the
+// lower slot. The hit is kernel A's (t, slot, u, v) bit for bit: the
 // same arithmetic (hit.cuh) and the same tie rule, the lowest slot among
 // equal t.
+//
+// Its boundary is the bounce's: a query is read as the callers hold it,
+// origins and directions as [N, 3] float32 rows and an optional bool
+// mask (the carry rows and the rows csrc/shade.cu writes), and the hit is
+// written as the intersectors report it (ops/dense.face_hits): the
+// original face id perm[slot] (int64; -1 for a miss or a padding slot),
+// t (FLT_MAX there) and (u, v) (0 there). Selection, not arithmetic: the
+// results are kernel A's face-level hits bit for bit, and a query is one
+// launch with nothing packed before it or unpacked after it.
 //
 // What bounds it on the H100: the pair tests, ~39 fp32 operations each
 // (as kernel A), tc per visited chunk. A chunk's planes are tc x 48 B
@@ -286,11 +295,14 @@ __device__ __forceinline__ void test_rays(Block& s, const int* rs, int cnt,
 }
 
 __global__ void __launch_bounds__(kBlock, 3)
-    packet_hit_kernel(const float* __restrict__ rays,
+    packet_hit_kernel(const float* __restrict__ origins,
+                      const float* __restrict__ dirs,
+                      const bool* __restrict__ mask,
                       const float* __restrict__ planes,
-                      const float* __restrict__ boxes, int n, int n_chunks,
-                      int tc, float* __restrict__ t_out,
-                      int* __restrict__ slot_out, float* __restrict__ uv_out,
+                      const float* __restrict__ boxes,
+                      const int64_t* __restrict__ perm, int n, int n_faces,
+                      int n_chunks, int tc, int64_t* __restrict__ fid_out,
+                      float* __restrict__ t_out, float* __restrict__ uv_out,
                       int* __restrict__ visits_out,
                       int* __restrict__ stagings_out) {
   extern __shared__ __align__(128) unsigned char dyn[];
@@ -301,13 +313,16 @@ __global__ void __launch_bounds__(kBlock, 3)
   const int i = blockIdx.x * kBlock + tid;
 
   for (int c = tid; c < n_chunks; c += kBlock) hist[c] = 0;
-  // origin xyz, direction xyz, alive flag, 0
-  float r[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // origin xyz, direction xyz: the rows as the caller holds them
+  float r[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool live = false;
   if (i < n) {
-    const float4* p = reinterpret_cast<const float4*>(rays + 8 * (size_t)i);
-    const float4 a = __ldg(p), b = __ldg(p + 1);
-    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-    r[4] = b.x; r[5] = b.y; r[6] = b.z;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r[k] = __ldg(origins + 3 * (size_t)i + k);
+      r[3 + k] = __ldg(dirs + 3 * (size_t)i + k);
+    }
+    live = mask == nullptr || mask[i];
   }
   s.ox[tid] = r[0]; s.oy[tid] = r[1]; s.oz[tid] = r[2];
   s.dx[tid] = r[3]; s.dy[tid] = r[4]; s.dz[tid] = r[5];
@@ -319,7 +334,7 @@ __global__ void __launch_bounds__(kBlock, 3)
   s.best_u[tid] = 0.f;
   s.best_v[tid] = 0.f;
   s.visits[tid] = 0;
-  s.live[tid] = i < n && r[6] != 0.f;
+  s.live[tid] = live;
   s.next[tid] = kNone;
   if (tid == 0) tpt::init_barriers(s.bar, 2);
   __syncthreads();
@@ -399,10 +414,13 @@ __global__ void __launch_bounds__(kBlock, 3)
     b ^= 1;
   }
   if (i < n) {
-    t_out[i] = s.best_t[tid];
-    slot_out[i] = s.best[tid];
-    uv_out[2 * (size_t)i] = s.best_u[tid];
-    uv_out[2 * (size_t)i + 1] = s.best_v[tid];
+    // the face-level hit: padding slots (at or above n_faces) miss
+    const int slot = s.best[tid];
+    const bool hit = slot >= 0 && slot < n_faces;
+    fid_out[i] = hit ? perm[slot] : -1;
+    t_out[i] = hit ? s.best_t[tid] : tpt::kRealMax;
+    uv_out[2 * (size_t)i] = hit ? s.best_u[tid] : 0.f;
+    uv_out[2 * (size_t)i + 1] = hit ? s.best_v[tid] : 0.f;
     visits_out[i] = s.visits[tid];
   }
   if (stagings_out != nullptr && tid == 0) stagings_out[blockIdx.x] = stagings;
@@ -427,16 +445,20 @@ extern "C" int tpt_packet_resources(int* regs, int* static_smem) {
   return 0;
 }
 
-// rays [N, 8], planes [Fp, 12], boxes [C, 8] (16-byte aligned), C * tc =
-// Fp, C < 2^20; outputs t [N] (FLT_MAX on miss), slot [N] (-1 on miss),
-// uv [N, 2] (0 on miss), visits [N] (chunks tested), and, unless null,
-// stagings [ceil(N / kBlock)] (chunks each block staged). Returns the
-// error of cudaFuncSetAttribute (the block's dynamic shared memory) or
-// cudaGetLastError() after the launch.
-extern "C" int tpt_packet_hit(const float* rays, const float* planes,
-                              const float* boxes, int n, int n_chunks, int tc,
-                              float* t, int* slot, float* uv, int* visits,
-                              int* stagings, void* stream) {
+// origins, dirs [N, 3] (4-byte aligned), mask [N] bool or null (every
+// lane alive), planes [Fp, 12], boxes [C, 8] (16-byte aligned), perm [Fp]
+// int64 (slot -> face), C * tc = Fp, C < 2^20, n_faces <= Fp; outputs fid
+// [N] int64 (perm[slot], -1 for a miss or a padding slot), t [N] (FLT_MAX
+// there), uv [N, 2] (0 there), visits [N] (chunks tested), and, unless
+// null, stagings [ceil(N / kBlock)] (chunks each block staged). Returns
+// the error of cudaFuncSetAttribute (the block's dynamic shared memory)
+// or cudaGetLastError() after the launch.
+extern "C" int tpt_packet_hit(const float* origins, const float* dirs,
+                              const bool* mask, const float* planes,
+                              const float* boxes, const int64_t* perm, int n,
+                              int n_faces, int n_chunks, int tc, int64_t* fid,
+                              float* t, float* uv, int* visits, int* stagings,
+                              void* stream) {
   if (n_chunks <= 0 || n_chunks > static_cast<int>(kIdMask) || tc <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem_bytes = dynamic_smem(n_chunks, tc);
@@ -447,6 +469,7 @@ extern "C" int tpt_packet_hit(const float* rays, const float* planes,
   const int blocks = (n + kBlock - 1) / kBlock;
   packet_hit_kernel<<<blocks, kBlock, smem_bytes,
                       static_cast<cudaStream_t>(stream)>>>(
-      rays, planes, boxes, n, n_chunks, tc, t, slot, uv, visits, stagings);
+      origins, dirs, mask, planes, boxes, perm, n, n_faces, n_chunks, tc, fid,
+      t, uv, visits, stagings);
   return static_cast<int>(cudaGetLastError());
 }

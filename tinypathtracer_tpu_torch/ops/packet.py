@@ -24,7 +24,11 @@ The CUDA kernel (`csrc/packet.cu`, kernel C) replaces the TPU kernel
 `_make_packet_kernel`. `_packet_torch` is its plain PyTorch twin: same
 inputs and outputs, visit counts included. `packet_hit` dispatches on
 the tensors' device: CPU tensors take the twin, CUDA tensors launch the
-kernel, anything else raises. The TPU kernel's 8-ray packets, its
+kernel, anything else raises. A query crosses the boundary as the bounce
+holds it, origins and directions as [N, 3] rows and an optional bool
+mask, and comes back as the intersectors report a hit (`face_hits`:
+original face ids, a miss as -1): on the card one launch a query, with
+nothing packed before it or unpacked after it. The TPU kernel's 8-ray packets, its
 [S*16, 128] plane tiling and its chunk-id packing into 11 mantissa bits
 (a cap of 2048 chunks) are not carried over.
 
@@ -118,13 +122,21 @@ def precompute_packet(tri_verts, tc: int = PACKET_TC,
     return PacketTris(woop=woop, boxes=boxes.contiguous(), tc=tc)
 
 
-def _slab(rays, boxes):
-    """(entry [N, C], entered [N, C] bool) of rays [N, 8] against the
-    boxes."""
+def _rays(origins, dirs, mask):
+    """The twin's own table of a query: (rays [N, 6], origin xyz and
+    direction xyz; live [N] bool, every lane where mask is None)."""
+    live = (torch.ones(origins.shape[:1], dtype=torch.bool,
+                       device=origins.device) if mask is None else mask)
+    return torch.cat([origins, dirs], dim=1), live
+
+
+def _slab(rays, live, boxes):
+    """(entry [N, C], entered [N, C] bool) of rays [N, 6] against the
+    boxes; a lane that is not live enters none."""
     near, far = slab(rays[:, 0:3], reciprocals(rays[:, 3:6]), boxes)
     entry = torch.fmax(near, torch.full_like(near, DELTA))
     entered = ((far >= entry) & (boxes[:, 6] != 0.0)[None]
-               & (rays[:, 6] != 0.0)[:, None])
+               & live[:, None])
     return entry, entered
 
 
@@ -183,13 +195,15 @@ def _walk(entry, entered, chunk_t, chunk_s):
             visited.sum(dim=1, dtype=torch.int32))
 
 
-def _packet_torch(rays, planes, boxes, tc: int):
-    """Plain twin of kernel C. rays [N, 8] (origin xyz, direction xyz,
-    alive flag (0 = dead), 0); planes [Fp, 12]; boxes [C, 8] with
-    C * tc = Fp. Returns (t [N] f32, REAL_MAX on miss; slot [N] i32, -1
-    on miss; uv [N, 2] f32, 0 on miss; visits [N] i32, the chunks
-    tested) -- kernel A's (t, slot, uv) on live lanes, a miss and 0
-    visits on dead ones."""
+def _packet_torch(origins, dirs, mask, pk: PacketTris):
+    """Plain twin of kernel C. origins, dirs [N, 3]; mask [N] bool or
+    None (every lane alive); pk's planes [Fp, 12] and boxes [C, 8] with
+    C * tc = Fp. Returns (fid [N] i64, the original face id, -1 on a
+    miss; t [N] f32, REAL_MAX on a miss; uv [N, 2] f32, 0 on a miss;
+    visits [N] i32, the chunks tested): kernel A's hits through
+    `face_hits` on live lanes, a miss and 0 visits on dead ones."""
+    rays, live = _rays(origins, dirs, mask)
+    planes, boxes, tc = pk.woop.planes, pk.boxes, pk.tc
     n, c = rays.shape[0], boxes.shape[0]
     dev = rays.device
     t = torch.full((n,), REAL_MAX, device=dev)
@@ -198,7 +212,7 @@ def _packet_torch(rays, planes, boxes, tc: int):
     step = max(1, _TILE_BOXES // c)
     for r0 in range(0, n, step):
         rs = slice(r0, r0 + step)
-        entry, entered = _slab(rays[rs], boxes)
+        entry, entered = _slab(rays[rs], live[rs], boxes)
         ray_i, chunk = entered.nonzero(as_tuple=True)
         chunk_t = torch.full(entry.shape, REAL_MAX, device=dev)
         chunk_s = torch.zeros(entry.shape, dtype=torch.int64, device=dev)
@@ -206,7 +220,8 @@ def _packet_torch(rays, planes, boxes, tc: int):
         chunk_t[ray_i, chunk] = pt
         chunk_s[ray_i, chunk] = ps
         t[rs], slot[rs], visits[rs] = _walk(entry, entered, chunk_t, chunk_s)
-    return t, slot.int(), winner_uv(rays, planes, slot), visits
+    uv = winner_uv(rays, planes, slot)
+    return (*face_hits(t, slot, uv, pk.woop), visits)
 
 
 def _pick(hist):
@@ -242,9 +257,11 @@ def _lane_minima(rays, planes, tc, ray_i, chunk):
     return t_out, s_out
 
 
-def _packet_schedule(rays, planes, boxes, tc: int, block: int = PACKET_BLOCK):
+def _packet_schedule(origins, dirs, mask, pk: PacketTris,
+                     block: int = PACKET_BLOCK):
     """Plain model of kernel C's block schedule, for the tests and
-    chip_smoke.py only: no route calls it. Rays are cut into blocks of
+    chip_smoke.py only: no route calls it. It takes `_packet_torch`'s
+    arguments. Rays are cut into blocks of
     `block` in order; each block replays the kernel's rules:
 
     - a ray waits on the chunk its next key names (none once its walk
@@ -261,15 +278,17 @@ def _packet_schedule(rays, planes, boxes, tc: int, block: int = PACKET_BLOCK):
     - the ray's next key is the least (entry bits << 32 | chunk id)
       above the visited one whose entry is <= its best t.
 
-    Returns ((t, slot, uv, visits) as `_packet_torch` does; stagings
+    Returns ((fid, t, uv, visits) as `_packet_torch` does; stagings
     [blocks] i32, the chunks each block staged, which kernel C reports;
     served [blocks, steps] i32, the rays each block tested at each of
     its stagings in order, 0 once it has ended)."""
+    rays, live = _rays(origins, dirs, mask)
+    planes, boxes, tc = pk.woop.planes, pk.boxes, pk.tc
     n, c = rays.shape[0], boxes.shape[0]
     dev = rays.device
     nb = -(-n // block)
     none = torch.iinfo(torch.int64).max
-    entry, entered = _slab(rays, boxes)                 # [N, C]
+    entry, entered = _slab(rays, live, boxes)           # [N, C]
     keys = (entry.view(torch.int32).long() << 32) \
         | torch.arange(c, device=dev)
     ids = torch.arange(nb * block, device=dev)
@@ -283,8 +302,8 @@ def _packet_schedule(rays, planes, boxes, tc: int, block: int = PACKET_BLOCK):
               & (keys[r] > last[:, None]))
         return torch.where(ok, keys[r], none).amin(dim=1)
 
-    live = (rays[:, 6] != 0).nonzero()[:, 0]
-    nxt[live] = next_key(live, torch.zeros_like(live))
+    alive = live.nonzero()[:, 0]
+    nxt[alive] = next_key(alive, torch.zeros_like(alive))
     cur = torch.full((nb,), -1, dtype=torch.int64, device=dev)
     stagings = torch.zeros((nb,), dtype=torch.int32, device=dev)
     rows = torch.arange(nb, device=dev)
@@ -317,14 +336,15 @@ def _packet_schedule(rays, planes, boxes, tc: int, block: int = PACKET_BLOCK):
     slot = torch.where(t < REAL_MAX, best_s[:n], -1)
     served = (torch.stack(served, dim=1) if served
               else torch.zeros((nb, 0), dtype=torch.int32, device=dev))
-    return ((t, slot.int(), winner_uv(rays, planes, slot), visits[:n]),
-            stagings, served)
+    uv = winner_uv(rays, planes, slot)
+    return ((*face_hits(t, slot, uv, pk.woop), visits[:n]), stagings,
+            served)
 
 
 @functools.cache
 def _lib():
     lib = cuda_build.load_library("packet")
-    lib.tpt_packet_hit.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    lib.tpt_packet_hit.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p] * 6
     lib.tpt_packet_hit.restype = ctypes.c_int
     lib.tpt_packet_resources.argtypes = [ctypes.c_void_p] * 2
@@ -364,50 +384,86 @@ def check_fits(n_chunks: int, tc: int, static: int) -> None:
             f"{SMEM_PER_BLOCK} B of shared memory an H100 block can have")
 
 
-def _packet_cuda(rays, planes, boxes, tc: int, stagings=None):
+def _check_query(origins, dirs, mask, pk: PacketTris):
+    """Raise unless the query is what kernel C reads in place: origins
+    and dirs contiguous float32 [N, 3], mask None or a contiguous bool
+    [N], and pk's slot -> face table a contiguous int64 [Fp], all on the
+    device of pk's boxes."""
+    n, dev = origins.shape[0], pk.boxes.device
+    ok = all(x.dtype == torch.float32 and x.device == dev
+             and x.is_contiguous() and x.shape == (n, 3)
+             for x in (origins, dirs))
+    ok &= mask is None or (mask.dtype == torch.bool and mask.device == dev
+                           and mask.is_contiguous() and mask.shape == (n,))
+    perm = pk.woop.perm
+    ok &= (perm.dtype == torch.int64 and perm.device == dev
+           and perm.is_contiguous() and perm.shape == (pk.woop.n_padded,))
+    if not ok:
+        raise ValueError(
+            f"kernel C takes contiguous float32 origins and dirs [N, 3], a "
+            f"contiguous bool mask [N] or None and an int64 perm [Fp] on "
+            f"one device (got {origins.dtype} {tuple(origins.shape)}, "
+            f"{dirs.dtype} {tuple(dirs.shape)}, mask "
+            f"{None if mask is None else (mask.dtype, tuple(mask.shape))}, "
+            f"perm {perm.dtype} {tuple(perm.shape)})")
+
+
+def _packet_cuda(origins, dirs, mask, pk: PacketTris, stagings=None):
     """Kernel C. With `stagings` (int32 [ceil(N / PACKET_BLOCK)] on the
     rays' device) it also writes the chunks each block staged; the route
     passes none."""
-    cuda_build.check_operands(rays, planes, boxes)
-    n, dev, c = rays.shape[0], rays.device, boxes.shape[0]
-    check_fits(c, tc, kernel_resources()[1])
+    cuda_build.check_operands(pk.woop.planes, pk.boxes)
+    _check_query(origins, dirs, mask, pk)
+    n, dev, c = origins.shape[0], origins.device, pk.n_chunks
+    check_fits(c, pk.tc, kernel_resources()[1])
     if stagings is not None and not (
             stagings.dtype == torch.int32 and stagings.device == dev
             and stagings.is_contiguous()
             and stagings.shape == (-(-n // PACKET_BLOCK),)):
         raise ValueError(f"stagings must be a contiguous int32 tensor of "
                          f"{-(-n // PACKET_BLOCK)} on {dev}")
+    fid = torch.empty((n,), dtype=torch.int64, device=dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
-    slot = torch.empty((n,), dtype=torch.int32, device=dev)
     uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
     visits = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
-        return t, slot, uv, visits
+        return fid, t, uv, visits
     with span("tpt.kernel_c"):
         status = _lib().tpt_packet_hit(
-            rays.data_ptr(), planes.data_ptr(), boxes.data_ptr(), n, c, tc,
-            t.data_ptr(), slot.data_ptr(), uv.data_ptr(), visits.data_ptr(),
+            origins.data_ptr(), dirs.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            pk.woop.planes.data_ptr(), pk.boxes.data_ptr(),
+            pk.woop.perm.data_ptr(), n, pk.woop.n_faces, c, pk.tc,
+            fid.data_ptr(), t.data_ptr(), uv.data_ptr(), visits.data_ptr(),
             None if stagings is None else stagings.data_ptr(),
             cuda_build.stream_ptr(dev))
     cuda_build.check_launch(status, "packet_hit")
     packet_hit.launches += 1
-    return t, slot, uv, visits
+    return fid, t, uv, visits
 
 
-def packet_hit(rays, planes, boxes, tc: int):
-    """Closest hit of rays [N, 8] by the near-to-far chunk walk: kernel C
-    on CUDA tensors, its plain twin on CPU tensors. See `_packet_torch`."""
-    if (rays.shape[-1] != 8 or planes.shape[-1] != 12
-            or boxes.shape[-1] != 8 or boxes.shape[0] * tc != planes.shape[0]):
-        raise ValueError(f"bad shapes rays {tuple(rays.shape)}, planes "
-                         f"{tuple(planes.shape)}, boxes {tuple(boxes.shape)}, "
-                         f"tc {tc}")
-    if rays.device.type == "cuda":
-        return _packet_cuda(rays, planes, boxes, tc)
-    if rays.device.type == "cpu":
+def packet_hit(origins, dirs, mask, pk: PacketTris):
+    """Closest hit of rays origins, dirs [N, 3] by the near-to-far chunk
+    walk, lanes with mask=False (mask: [N] bool or None) traversing
+    nothing: kernel C on CUDA tensors, its plain twin on CPU tensors.
+    Returns (fid, t, uv, visits); see `_packet_torch`."""
+    n = origins.shape[0]
+    planes, boxes = pk.woop.planes, pk.boxes
+    if (origins.shape != (n, 3) or dirs.shape != (n, 3)
+            or (mask is not None and mask.shape != (n,))
+            or planes.shape[-1] != 12 or boxes.shape[-1] != 8
+            or boxes.shape[0] * pk.tc != planes.shape[0]):
+        raise ValueError(
+            f"bad shapes origins {tuple(origins.shape)}, dirs "
+            f"{tuple(dirs.shape)}, mask "
+            f"{None if mask is None else tuple(mask.shape)}, planes "
+            f"{tuple(planes.shape)}, boxes {tuple(boxes.shape)}, tc {pk.tc}")
+    if origins.device.type == "cuda":
+        return _packet_cuda(origins, dirs, mask, pk)
+    if origins.device.type == "cpu":
         with span("tpt.kernel_c"):
-            return _packet_torch(rays, planes, boxes, tc)
-    raise ValueError(f"packet_hit has no kernel for device {rays.device}")
+            return _packet_torch(origins, dirs, mask, pk)
+    raise ValueError(f"packet_hit has no kernel for device {origins.device}")
 
 
 packet_hit.launches = 0
@@ -420,12 +476,9 @@ def closest_hit_packet(origins, dirs, pk: PacketTris, mask=None,
     Returns (fid, t, uv) as `closest_hit_dense` does, bit for bit;
     lanes with mask=False traverse nothing and report a miss. With
     with_visits, also visits [N] i32, the chunks each ray tested (pairs
-    tested = visits * pk.tc)."""
-    n = origins.shape[0]
-    alive = (origins.new_ones((n, 1)) if mask is None
-             else mask.to(origins.dtype)[:, None])
-    rays = torch.cat([origins, dirs, alive, origins.new_zeros((n, 1))], dim=1)
-    t, slot, uv, visits = packet_hit(rays.contiguous(), pk.woop.planes,
-                                     pk.boxes, pk.tc)
-    fid, t, uv = face_hits(t, slot, uv, pk.woop)
+    tested = visits * pk.tc). The rows are read where they lie (a copy
+    only of a strided view): on the card one launch of kernel C."""
+    fid, t, uv, visits = packet_hit(
+        origins.contiguous(), dirs.contiguous(),
+        None if mask is None else mask.contiguous(), pk)
     return (fid, t, uv, visits) if with_visits else (fid, t, uv)
